@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``subzero_tpu_torch``) on one NVIDIA
+GPU: the quickest proof that the port builds and runs its main path there.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero and
+prints no result):
+
+1. Build the CUDA clip kernel from ``subzero_tpu_torch/csrc/clip.cu``.
+2. Hold the kernel against its plain PyTorch version on the card, on seeded
+   random convex and concave pairs at 1000 m scale: float32 for
+   intersection and difference at B=13 (ragged tail), B=81,920 with
+   Vp=Vq=16, Vp=16/Vq=8 and Vp=Vq=64 (area within 1e-5 max|area|, chord
+   within 1e-2 m, n_cross exactly equal), and the float64 instance at
+   1e-9 relative; then on the main path's own pairs (below).
+3. Run a walled 256-floe lattice for 20 steps in float64 with
+   ``device="cpu"`` (plain clip) and ``device="cuda"`` (kernel) from the
+   same numpy inputs: positions within 1e-6 m, velocities within 1e-9 m/s,
+   the same collision count every step.
+4. Drive the main path at full size in float32: the 10,240-floe dense quad
+   lattice (V=16, K=8, 256 Monte-Carlo points, stress window 100,
+   aggregate contacts, uniform 0.1 m/s ocean), periodic and walled, one
+   warm-up step then 30 timed steps each, through ``make_step_fn``.  The
+   kernel's launch counter is zeroed before each run and must read one
+   launch per periodic step and two per walled step.
+
+Earlier lines report build time, kernel and plain-version times at the main
+path's shapes, floe-steps/s and per-phase CUDA-event times.  The line before
+last holds the card's name and power limit; before it, one JSON object with
+the kernel's record.  The last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+MODULUS = 1.6e8          # the flagship workload's elastic modulus
+N_FLOES = 10240
+STEPS = 30
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+def random_pairs(b, vp, vq, seed, scale=1000.0):
+    """Seeded random pairs of star-shaped polygons (simple and CCW), padded
+    by repeating vertex 0; about half of them concave."""
+    rng = np.random.default_rng(seed)
+
+    def polys(v, center):
+        nv = rng.integers(3, v + 1, size=b)
+        k = np.arange(v)
+        # nv increasing angles with gaps < pi: star-shaped about the
+        # center, so simple and CCW
+        th = 2 * np.pi * (k + 0.4 * rng.random((b, v))) / nv[:, None]
+        r = rng.uniform(0.5, 1.0, size=(b, v))
+        concave = (rng.random(b) < 0.5) & (nv >= 6)
+        r = np.where(concave[:, None] & (k % 2 == 1), 0.4 * r, r)
+        xy = np.stack([r * np.cos(th), r * np.sin(th)], axis=-1)
+        xy = np.where((k < nv[:, None])[..., None], xy, xy[:, :1, :])
+        return scale * (xy + center[:, None, :])
+
+    p = polys(vp, np.zeros((b, 2)))
+    q = polys(vq, rng.uniform(-1.2, 1.2, size=(b, 2)))
+    return p, q
+
+
+def lattice(n_floes, seed=0, pitch=4000.0):
+    """The flagship dense pack (bench.py's ``build``): a ~sqrt(N) x sqrt(N)
+    lattice of jittered quads at ~93% concentration, random velocities."""
+    side = int(np.ceil(np.sqrt(n_floes)))
+    lx = side * pitch / 2
+    rng = np.random.default_rng(seed)
+    sq = 0.5 * np.array([[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0], [-1.0, 1.0]])
+    polys = []
+    for k in range(n_floes):
+        i, j = divmod(k, side)
+        center = np.array([-lx + (j + 0.5) * pitch, -lx + (i + 0.5) * pitch])
+        jitter = rng.uniform(-0.03, 0.03, size=(4, 2)) * pitch
+        polys.append(sq * pitch * 0.97 + jitter + center)
+    vel = rng.uniform(-0.1, 0.1, size=(n_floes, 2))
+    return polys, vel, lx
+
+
+def lattice_config(n_floes, lx, periodic, dtype, n_mc=256, window=100):
+    from subzero_tpu_torch.config import (
+        CapacityConfig, ContactConfig, DomainConfig, NumericsConfig,
+        ProcessConfig, SimConfig,
+    )
+
+    return SimConfig(
+        capacity=CapacityConfig(max_floes=int(np.ceil(n_floes / 8)) * 8,
+                                max_verts=16, max_neighbors=8,
+                                n_mc_points=n_mc, stress_window=window),
+        numerics=NumericsConfig(dtype=dtype),
+        domain=DomainConfig(lx=lx, ly=lx),
+        processes=ProcessConfig(periodic=periodic),
+        contact=ContactConfig(per_region=False),
+    )
+
+
+# ---------------------------------------------------------------------------
+# measurement helpers
+# ---------------------------------------------------------------------------
+
+def cuda_ms(fn, reps=20, warmup=3):
+    """Mean milliseconds per call of ``fn`` by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def real_edges(poly):
+    """Edges of non-zero length per polygon, [B] (the kernel skips the
+    zero-length padding edges)."""
+    import torch
+
+    d = torch.roll(poly, -1, dims=1) - poly
+    return ((d[..., 0] != 0) | (d[..., 1] != 0)).sum(dim=1)
+
+
+def clip_bound_ms(p, q):
+    """Least time the card could take for the clip on (p, q): the larger of
+    bytes (each input read once, each output written once) over 3.35 TB/s
+    and float operations over 67 TFLOP/s (f32 without tensor cores),
+    counting 90 operations per (P edge, Q edge) pair per side, as the Pallas
+    kernel's cost estimate does (clip_pallas.py:186-190), for the edges of
+    non-zero length in this data."""
+    b = p.shape[0]
+    nbytes = (p.numel() + q.numel()) * p.element_size() + b * (
+        5 * p.element_size() + 4)
+    pairs = float((real_edges(p) * real_edges(q)).sum())
+    flops = 2 * 90 * pairs
+    t_bytes = nbytes / 3.35e12 * 1e3
+    t_ops = flops / 67e12 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), nbytes, flops
+
+
+def compare(got, want, dtype, where):
+    """Kernel result against the plain version: raises on disagreement,
+    returns the largest absolute differences."""
+    import torch
+
+    d_area = float((got.area - want.area).abs().max())
+    d_chord = float((got.chord_p - want.chord_p).abs().max())
+    ok_area = want.area.abs().max().item()
+    ok_chord = want.chord_p.abs().max().item()
+    if dtype == torch.float32:
+        tol_area, tol_chord = 1e-5 * ok_area, 1e-2
+    else:
+        tol_area, tol_chord = 1e-9 * ok_area, 1e-9 * max(ok_chord, 1.0)
+    bad_nc = int((got.n_cross != want.n_cross).sum())
+    if d_area > tol_area or d_chord > tol_chord or bad_nc:
+        raise AssertionError(
+            f"kernel disagrees with plain at {where}: d_area {d_area} "
+            f"(tol {tol_area}), d_chord {d_chord} (tol {tol_chord}), "
+            f"{bad_nc} n_cross mismatches")
+    return d_area, d_chord
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from subzero_tpu_torch.kernels import clip as kclip
+
+    t0 = time.perf_counter()
+    kclip.build()
+    log(f"[build] clip.cu -> {kclip.build_info['path']} "
+        f"(compiled here: {kclip.build_info['compiled']}) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for line in kclip.build_info["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] ptxas: {line.strip()}")
+
+
+def phase_kernel_vs_plain():
+    import torch
+
+    from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
+    from subzero_tpu_torch.kernels import clip as kclip
+
+    shapes = [(13, 16, 16), (81920, 16, 16), (10240, 16, 8), (4096, 64, 64)]
+    worst = 0.0
+    for b, vp, vq in shapes:
+        p_np, q_np = random_pairs(b, vp, vq, seed=b + vp + vq)
+        for dtype in (torch.float32, torch.float64):
+            p = torch.from_numpy(p_np).to("cuda", dtype)
+            q = torch.from_numpy(q_np).to("cuda", dtype)
+            for diff in (False, True):
+                got = kclip.clip_stats_cuda(p, q, diff)
+                want = clip_integral_bm(p, q, diff)
+                da, dc = compare(got, want, dtype,
+                                 f"B={b} Vp={vp} Vq={vq} {dtype} "
+                                 f"{'difference' if diff else 'overlap'}")
+                log(f"[kernel] B={b:6d} Vp={vp:2d} Vq={vq:2d} "
+                    f"{str(dtype)[6:]:7s} {'diff' if diff else 'ovl '} "
+                    f"max|d area| {da:.3e}  max|d chord| {dc:.3e}  "
+                    f"n_cross equal")
+                if dtype == torch.float32 and (b, vp, vq, diff) == (
+                        81920, 16, 16, False):
+                    worst = max(worst, da)
+    torch.cuda.synchronize()
+    return worst
+
+
+def main_path_pairs(state, cfg):
+    """The clip inputs of the main path's first step: the floe-floe pairs
+    in each floe's frame and the floe-vs-domain pairs, as contact_forces and
+    boundary_contact build them."""
+    import torch
+
+    from subzero_tpu_torch.dynamics.broadphase import neighbor_candidates
+    from subzero_tpu_torch.dynamics.step import domain_polygon
+
+    vw = state.verts_world()
+    nbr = neighbor_candidates(state.x, state.y, state.rmax, state.alive,
+                              cfg.capacity.max_neighbors, True,
+                              cfg.domain.lx, cfg.domain.ly)
+    ci = torch.stack([state.x, state.y], dim=-1)
+    vj = vw[nbr.idx.long()] + nbr.shift[:, :, None, :] - ci[:, None, None]
+    vi = (vw[:, None] - ci[:, None, None]).expand(vj.shape)
+    v = vw.shape[1]
+    dom = domain_polygon(cfg, device=state.device)
+    wall_q = (dom[None].expand(state.n, -1, -1) - ci[:, None]).contiguous()
+    return (vi.reshape(-1, v, 2).contiguous(), vj.reshape(-1, v, 2),
+            (vw - ci[:, None]).contiguous(), wall_q)
+
+
+def phase_step_parity():
+    import torch
+
+    from subzero_tpu_torch.convert import state_to_numpy, state_from_numpy
+    from subzero_tpu_torch.dynamics.step import make_step_fn
+    from subzero_tpu_torch.forcing import uniform_forcing
+    from subzero_tpu_torch.kernels import clip as kclip
+    from subzero_tpu_torch.state import state_from_polygons
+
+    polys, vel, lx = lattice(256, seed=1)
+    cfg = lattice_config(256, lx, periodic=False, dtype="float64", n_mc=64,
+                         window=16)
+    st0 = state_to_numpy(state_from_polygons(polys, 0.5, cfg,
+                                             velocities=vel, device="cpu"))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        fc = uniform_forcing(lx=4 * lx, dx=lx / 8, uo=0.1, va=5.0,
+                             dtype=torch.float64, device=dev)
+        step = make_step_fn(cfg, fc, MODULUS, device=dev)
+        st = state_from_numpy(st0, device=dev, dtype=torch.float64)
+        traj, ncol, walls = [], [], 0
+        kclip.clip_stats_cuda.launches = 0
+        for i in range(20):
+            st, aux = step(st, i)
+            traj.append({k: getattr(st, k).cpu().numpy()
+                         for k in ("x", "y", "u", "v", "ksi")})
+            ncol.append(int(aux.n_collisions))
+            walls += int(aux.boundary_contact.sum())
+        runs[dev] = (traj, ncol, walls, kclip.clip_stats_cuda.launches)
+    (tc, nc, wc, lc), (tg, ng, wg, lg) = runs["cpu"], runs["cuda"]
+    if lc != 0 or lg != 40:
+        raise AssertionError(f"kernel launches cpu={lc} cuda={lg}, "
+                             f"expected 0 and 40")
+    dpos = max(np.max(np.abs(a[k] - b[k])) for a, b in zip(tc, tg)
+               for k in ("x", "y"))
+    dvel = max(np.max(np.abs(a[k] - b[k])) for a, b in zip(tc, tg)
+               for k in ("u", "v", "ksi"))
+    log(f"[step f64] 256 floes walled, 20 steps: max|d pos| {dpos:.3e} m, "
+        f"max|d vel| {dvel:.3e} m/s, collisions/step cpu {nc} cuda {ng}, "
+        f"wall contacts {wc}/{wg}")
+    if nc != ng or dpos > 1e-6 or dvel > 1e-9 or sum(nc) == 0 or wg == 0:
+        raise AssertionError("CPU and CUDA steps disagree (or never "
+                             "collided)")
+
+
+def run_main_path(state, cfg, forcing):
+    """Warm-up step + STEPS timed steps; returns (launches, rate, phase
+    ms per step, final state, aux)."""
+    import torch
+
+    from subzero_tpu_torch.dynamics.step import make_step_fn
+    from subzero_tpu_torch.kernels import clip as kclip
+
+    step = make_step_fn(cfg, forcing, MODULUS)
+    marks = []
+
+    def timer(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    kclip.clip_stats_cuda.launches = 0
+    s, aux = step(state, 0)
+    torch.cuda.synchronize()
+    marks.clear()
+    t0 = time.perf_counter()
+    for i in range(1, STEPS + 1):
+        s, aux = step(s, i, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kclip.clip_stats_cuda.launches
+    phase = {}
+    for (name, a), (_, b) in zip(marks, marks[1:]):
+        if name != "end":
+            phase[name] = phase.get(name, 0.0) + a.elapsed_time(b) / STEPS
+    return launches, N_FLOES * STEPS / wall, phase, s, aux
+
+
+def phase_main_path(kernel_record):
+    import torch
+
+    from subzero_tpu_torch.forcing import uniform_forcing
+    from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
+    from subzero_tpu_torch.kernels import clip as kclip
+    from subzero_tpu_torch.state import state_from_polygons
+
+    t0 = time.perf_counter()
+    polys, vel, lx = lattice(N_FLOES)
+    cfg_p = lattice_config(N_FLOES, lx, periodic=True, dtype="float32")
+    state = state_from_polygons(polys, 0.5, cfg_p, velocities=vel)
+    forcing = uniform_forcing(lx=4 * lx, dx=lx / 8, uo=0.1)
+    torch.cuda.synchronize()
+    log(f"[main] built {N_FLOES} floes in {time.perf_counter() - t0:.3f} s")
+
+    # The kernel at the main path's own inputs (first step's pairs), against
+    # the plain version on the same tensors, and timed.
+    p, q, fw, wq = main_path_pairs(state, cfg_p)
+    for name, (a, b, diff) in (("overlap", (p, q, False)),
+                               ("wall difference", (fw, wq, True))):
+        got = kclip.clip_stats_cuda(a, b, diff)
+        want = clip_integral_bm(a, b, diff)
+        da, dc = compare(got, want, torch.float32, f"main-path {name}")
+        ms = cuda_ms(lambda: kclip.clip_stats_cuda(a, b, diff))
+        plain = cuda_ms(lambda: clip_integral_bm(a, b, diff), reps=5)
+        bound, by, nbytes, flops = clip_bound_ms(a, b)
+        log(f"[kernel] main-path {name}: B={a.shape[0]} Vp={a.shape[1]} "
+            f"Vq={b.shape[1]}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+            f"bound {bound:.4f} ms ({by}: {nbytes} B, {flops:.4g} flop)  "
+            f"max|d area| {da:.3e}  max|d chord| {dc:.3e}")
+        if not diff:
+            kernel_record.update(max_abs_err=da, ms=ms, plain_ms=plain,
+                                 bound_ms=bound, bound_by=by)
+    del p, q, fw, wq
+    torch.cuda.empty_cache()
+
+    total = 0
+    for periodic in (True, False):
+        cfg = lattice_config(N_FLOES, lx, periodic=periodic, dtype="float32")
+        label = "periodic" if periodic else "walled"
+        torch.cuda.reset_peak_memory_stats()
+        launches, rate, phase, s, aux = run_main_path(state, cfg, forcing)
+        want = (STEPS + 1) * (1 if periodic else 2)
+        log(f"[main] {label}: {rate:.1f} floe-steps/s over {STEPS} steps; "
+            f"per step (CUDA events, ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
+            + f"; clip launches {launches} (expected {want}); "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if launches != want:
+            raise AssertionError(f"{label}: {launches} clip launches, "
+                                 f"expected {want}")
+        for k in ("x", "y", "u", "v", "ksi", "alpha"):
+            t = getattr(s, k)
+            if t.shape != (cfg.capacity.max_floes,) or \
+                    not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{label}: state.{k} not finite")
+        n_alive = int(s.alive.sum())
+        n_col = int(aux.n_collisions)
+        log(f"[main] {label}: alive {n_alive}, collisions last step "
+            f"{n_col}, broad-phase overflow {bool(aux.nbr_overflow)}")
+        if n_col == 0 or n_alive < N_FLOES * 0.9:
+            raise AssertionError(f"{label}: implausible end state")
+        total += launches
+    kernel_record["launches"] = total
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    log(f"[device] {name}, torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+
+    t_all = time.perf_counter()
+    phase_build()
+    worst = phase_kernel_vs_plain()
+    phase_step_parity()
+    record = {
+        "name": "clip", "route": "cuda",
+        "source": "subzero_tpu_torch/csrc/clip.cu",
+        "replaces": "subzero_tpu/geometry/clip_pallas.py:125",
+        "library_ms": None,
+    }
+    phase_main_path(record)
+    record["max_abs_err"] = max(record["max_abs_err"], worst)
+    log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

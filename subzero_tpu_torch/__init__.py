@@ -1,0 +1,21 @@
+"""subzero_tpu_torch — the PyTorch/CUDA port of subzero_tpu.
+
+A second package beside the JAX one, with the same module layout and public
+names so that each function's counterpart is easy to find.  Plain tensor
+code is PyTorch; the parity-integral clip, the one Pallas TPU kernel of the
+JAX package, is a CUDA C++ kernel written for Hopper (``csrc/clip.cu``,
+bound in ``kernels/clip.py``).
+
+The port imports nothing of ``subzero_tpu`` (its numpy helpers and config
+are copied).  Entry points run on the GPU (``device="cuda"``) unless the
+caller passes ``device="cpu"``, as the tests do; on CPU tensors every kernel
+wrapper uses its plain PyTorch version.
+
+Ported so far: the single-device physics step in aggregate-contact mode
+(``ContactConfig(per_region=False)``), see ROADMAP.md.
+"""
+
+from .config import SimConfig
+
+__version__ = "0.1.0"
+__all__ = ["SimConfig", "__version__"]

@@ -1,0 +1,24 @@
+from .polygon import (
+    pad_polygon,
+    pad_polygons,
+    points_in_polygon,
+    poly_area,
+    poly_centroid,
+    poly_edges,
+    poly_moments,
+)
+from .clip import OverlapStats
+from .clip_integral import difference_stats_int, overlap_stats_int
+
+__all__ = [
+    "pad_polygon",
+    "pad_polygons",
+    "points_in_polygon",
+    "poly_area",
+    "poly_centroid",
+    "poly_edges",
+    "poly_moments",
+    "OverlapStats",
+    "difference_stats_int",
+    "overlap_stats_int",
+]

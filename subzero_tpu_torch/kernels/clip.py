@@ -1,0 +1,190 @@
+"""Parity-integral clip: the Hopper CUDA kernel and its dispatching wrapper.
+
+``overlap_stats(p, q)`` / ``difference_stats(p, q)`` take ``[B, Vp, 2]`` and
+``[B, Vq, 2]`` polygon pairs and return ``OverlapStats``:
+
+* on CUDA tensors they launch the kernel of ``csrc/clip.cu`` (replacing the
+  Pallas TPU kernel ``subzero_tpu/geometry/clip_pallas.py:_clip_kernel``),
+  or raise — there is no fallback;
+* on CPU tensors they run the plain PyTorch version,
+  ``geometry/clip_integral.clip_integral_bm``.
+
+The kernel is compiled at first use, from the package's own source, with
+``nvcc`` into a shared library with a plain C interface (loaded with
+``ctypes``), cached under ``subzero_tpu_torch/_build/`` by a hash of the
+source and flags.  Nothing is built or imported from CUDA when the module is
+imported, so the CPU path works without ``nvcc`` or a GPU.
+
+``clip_stats_cuda.launches`` counts kernel launches (one per call that
+reaches the kernel), so a run can show its main path went through it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+from ..geometry.clip import OverlapStats
+from ..geometry.clip_integral import clip_integral_bm, eps_scale
+
+__all__ = [
+    "overlap_stats",
+    "difference_stats",
+    "clip_stats",
+    "clip_stats_cuda",
+    "build",
+]
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "clip.cu"
+BUILD_DIR = _PKG / "_build"
+# --fmad=false and no --use_fast_math: products, differences, 1/x and sqrt
+# round as IEEE operations, like the plain version, so n_cross agrees exactly.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lib = None
+_lib_lock = threading.Lock()
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA clip kernel cannot be built")
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library.
+
+    Fills ``build_info`` with the library path, whether it was compiled in
+    this process, the seconds that took and nvcc's ``-Xptxas -v`` report
+    (kept beside the library).
+    """
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        src = SOURCE.read_bytes()
+        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        so = BUILD_DIR / f"clip-{key[:16]}.so"
+        t0 = time.perf_counter()
+        log = ""
+        compiled = not so.exists()
+        if compiled:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                res = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                    capture_output=True, text=True)
+                log = res.stdout + res.stderr
+                if res.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
+                so.with_suffix(".log").write_text(log)
+                os.replace(tmp, so)   # atomic: concurrent builders agree
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        elif so.with_suffix(".log").exists():
+            log = so.with_suffix(".log").read_text()
+        lib = ctypes.CDLL(str(so))
+        for name in ("clip_stats_f32", "clip_stats_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+        build_info.update(path=str(so), compiled=compiled,
+                          seconds=time.perf_counter() - t0, log=log)
+        _lib = lib
+        return lib
+
+
+def _check(p: torch.Tensor, q: torch.Tensor):
+    if p.device != q.device:
+        raise ValueError(f"p on {p.device} but q on {q.device}")
+    if p.dtype != q.dtype or p.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"clip needs float32 or float64 pairs of one dtype, "
+                        f"got {p.dtype} and {q.dtype}")
+    if (p.ndim != 3 or q.ndim != 3 or p.shape[2] != 2 or q.shape[2] != 2
+            or p.shape[0] != q.shape[0] or p.shape[1] < 1 or q.shape[1] < 1):
+        raise ValueError(f"expected [B, Vp, 2] and [B, Vq, 2], got "
+                         f"{tuple(p.shape)} and {tuple(q.shape)}")
+
+
+def clip_stats_cuda(p: torch.Tensor, q: torch.Tensor,
+                    difference: bool) -> OverlapStats:
+    """Launch the CUDA kernel on CUDA tensors ``p [B, Vp, 2]``,
+    ``q [B, Vq, 2]`` (contiguous, float32 or float64); raises otherwise."""
+    _check(p, q)
+    if p.device.type != "cuda":
+        raise ValueError(f"clip_stats_cuda needs CUDA tensors, got {p.device}")
+    if not (p.is_contiguous() and q.is_contiguous()):
+        raise ValueError("clip_stats_cuda needs contiguous inputs")
+    b, vp, vq = p.shape[0], p.shape[1], q.shape[1]
+    kw = dict(dtype=p.dtype, device=p.device)
+    area = torch.empty((b,), **kw)
+    cent = torch.empty((b, 2), **kw)
+    chord = torch.empty((b, 2), **kw)
+    ncross = torch.empty((b,), dtype=torch.int32, device=p.device)
+    if b == 0:
+        return OverlapStats(area=area, centroid=cent, chord_p=chord,
+                            n_cross=ncross)
+    lib = build()
+    fn = lib.clip_stats_f32 if p.dtype == torch.float32 else lib.clip_stats_f64
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = fn(p.data_ptr(), q.data_ptr(), b, vp, vq, int(difference),
+                 eps_scale(p.dtype), area.data_ptr(), cent.data_ptr(),
+                 chord.data_ptr(), ncross.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"clip kernel launch failed: CUDA error {err}")
+    clip_stats_cuda.launches += 1
+    return OverlapStats(area=area, centroid=cent, chord_p=chord,
+                        n_cross=ncross)
+
+
+clip_stats_cuda.launches = 0
+
+
+def clip_stats(p: torch.Tensor, q: torch.Tensor,
+               difference: bool) -> OverlapStats:
+    """P ∩ Q (or P \\ Q) statistics: the kernel on CUDA tensors, the plain
+    PyTorch version on CPU tensors."""
+    _check(p, q)
+    if p.device.type == "cuda":
+        return clip_stats_cuda(p.contiguous(), q.contiguous(), difference)
+    if p.device.type == "cpu":
+        return clip_integral_bm(p, q, difference)
+    raise ValueError(f"no clip for device {p.device}")
+
+
+def overlap_stats(p: torch.Tensor, q: torch.Tensor) -> OverlapStats:
+    """P ∩ Q statistics for ``[B, Vp, 2] × [B, Vq, 2]`` pairs."""
+    return clip_stats(p, q, difference=False)
+
+
+def difference_stats(p: torch.Tensor, q: torch.Tensor) -> OverlapStats:
+    """P \\ Q statistics for ``[B, Vp, 2] × [B, Vq, 2]`` pairs."""
+    return clip_stats(p, q, difference=True)

@@ -1,0 +1,186 @@
+"""The port's broad phase, contact forces and trajectory update against the
+JAX package's, float64 on the CPU, from the same numpy inputs."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from subzero_tpu.dynamics.broadphase import neighbor_candidates
+from subzero_tpu.dynamics.contact import boundary_contact, contact_forces
+from subzero_tpu.dynamics.step import domain_polygon
+from subzero_tpu.dynamics.trajectory import trajectory_update
+from subzero_tpu.forcing import gyre_ocean
+from subzero_tpu.state import state_from_polygons
+
+from subzero_tpu_torch.convert import (
+    forcing_from_numpy, state_from_numpy, state_to_numpy,
+)
+from subzero_tpu_torch.dynamics import broadphase as tbp
+from subzero_tpu_torch.dynamics import contact as tcontact
+from subzero_tpu_torch.dynamics import trajectory as ttraj
+from test_torch_step import configs, lattice, to_numpy
+
+torch.set_num_threads(1)
+
+MODULUS = 1.6e8
+
+
+def _t(a, dtype=None):
+    return torch.from_numpy(np.array(a)).to(dtype) if dtype else \
+        torch.from_numpy(np.array(a))
+
+
+def lattice_state(side, periodic, seed=0, n_dead=3):
+    polys, vel, lx = lattice(side, seed=seed)
+    n = side * side
+    jcfg, pcfg = configs(n, lx, periodic)
+    js = state_from_polygons(polys, 0.5, jcfg, velocities=vel)
+    dead = np.zeros(n, bool)
+    dead[np.random.default_rng(seed).choice(n, n_dead, replace=False)] = True
+    js = js.replace(alive=js.alive & ~jnp.asarray(dead))
+    return jcfg, pcfg, js, lx
+
+
+@pytest.mark.parametrize("periodic,n_skip", [(True, 0), (False, 0),
+                                             (False, 4)])
+def test_broadphase_identical(periodic, n_skip):
+    jcfg, _, js, lx = lattice_state(8, periodic)
+    args = (js.x, js.y, js.rmax, js.alive, 8, periodic, lx, lx)
+    want = neighbor_candidates(*args, n_skip_rows=n_skip)
+    got = tbp.neighbor_candidates(
+        _t(js.x), _t(js.y), _t(js.rmax), _t(js.alive), 8, periodic, lx, lx,
+        n_skip_rows=n_skip)
+    for f in ("idx", "valid", "shift", "overflow", "demand"):
+        w = np.asarray(getattr(want, f))
+        g = getattr(got, f).numpy()
+        # (idx and demand are int32 in the port, as in the JAX step's aux;
+        # the JAX broad phase widens them to int64 under x64)
+        assert g.dtype == (np.int32 if f in ("idx", "demand")
+                           else w.dtype), f
+        np.testing.assert_array_equal(g, w, err_msg=f)
+    assert bool(np.asarray(want.valid).any())
+
+
+def test_broadphase_overflow_and_ties():
+    # a regular (untilted, unjittered) lattice has exact distance ties, and
+    # K=3 < the 8 neighbours of an interior floe forces an overflow
+    side, pitch = 5, 1000.0
+    g = (np.arange(side) - (side - 1) / 2) * pitch
+    x, y = [a.ravel() for a in np.meshgrid(g, g)]
+    r = np.full(x.shape, 0.75 * pitch)
+    alive = np.ones(x.shape, bool)
+    lx = side * pitch / 2
+    want = neighbor_candidates(jnp.asarray(x), jnp.asarray(y),
+                               jnp.asarray(r), jnp.asarray(alive), 3, True,
+                               lx, lx)
+    got = tbp.neighbor_candidates(_t(x), _t(y), _t(r), _t(alive), 3, True,
+                                  lx, lx)
+    for f in ("idx", "valid", "shift", "overflow", "demand"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert bool(got.overflow)
+
+
+def _nbr_to_torch(nbr):
+    return tbp.NeighborTable(*(_t(a) for a in nbr))
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_contact_forces_match(periodic):
+    jcfg, pcfg, js, lx = lattice_state(6, periodic, seed=2)
+    ts = state_from_numpy(to_numpy(js), device="cpu")
+    nbr = neighbor_candidates(js.x, js.y, js.rmax, js.alive, 8, periodic,
+                              lx, lx)
+    dom = domain_polygon(jcfg)
+    vw = js.verts_world()
+    want = contact_forces(vw, js.x, js.y, js.u, js.v, js.ksi, js.h, js.area,
+                          nbr, MODULUS, jcfg, nv=js.nv, domain_verts=dom)
+    got = tcontact.contact_forces(
+        ts.verts_world(), ts.x, ts.y, ts.u, ts.v, ts.ksi, ts.h, ts.area,
+        _nbr_to_torch(nbr), MODULUS, pcfg, nv=ts.nv, domain_verts=_t(dom))
+    for f in want._fields:
+        w = np.asarray(getattr(want, f))
+        g = getattr(got, f).numpy()
+        scale = max(1.0, float(np.max(np.abs(w))))
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-9 * scale,
+                                   err_msg=f)
+    assert np.count_nonzero(np.asarray(want.fx)) > 10
+    if not periodic:
+        wb = boundary_contact(vw, js.x, js.y, js.u, js.v, js.ksi, js.h,
+                              js.area, js.alive, dom, MODULUS, jcfg, nv=js.nv)
+        gb = tcontact.boundary_contact(
+            ts.verts_world(), ts.x, ts.y, ts.u, ts.v, ts.ksi, ts.h, ts.area,
+            ts.alive, _t(dom), MODULUS, pcfg, nv=ts.nv)
+        for f in wb._fields:
+            w = np.asarray(getattr(wb, f))
+            scale = max(1.0, float(np.max(np.abs(w))))
+            np.testing.assert_allclose(getattr(gb, f).numpy(), w, rtol=0,
+                                       atol=1e-9 * scale, err_msg=f)
+        assert np.count_nonzero(np.asarray(wb.fx)) > 0
+
+
+@pytest.mark.parametrize("do_int", [True, False])
+def test_trajectory_update_with_clamps(do_int):
+    """Random contact forces large enough that the /10 force clamp, the
+    acceleration cap and the spin cap all fire, with thin floes (the
+    forcing refresh outside do_int steps), a tiny-mass death and the 4-gyre
+    ocean with wind."""
+    jcfg, pcfg, js, lx = lattice_state(6, False, seed=3)
+    n = js.n
+    rng = np.random.default_rng(4)
+    h = rng.uniform(0.05, 2.0, n)
+    h[::4] = rng.uniform(0.02, 0.1, h[::4].shape)       # thin: capped
+    rho = jcfg.physics.rho_ice
+    area = np.asarray(js.area)
+    d = to_numpy(js)
+    d.update(
+        h=h, mass=area * h * rho, inertia=np.asarray(js.inertia) * h / 0.5,
+        alpha=rng.uniform(-1, 1, n), ksi=rng.uniform(-1e-5, 1e-5, n),
+        dx_p=rng.uniform(-0.1, 0.1, n), dy_p=rng.uniform(-0.1, 0.1, n),
+        dalpha_p=rng.uniform(-1e-5, 1e-5, n),
+        du_p=rng.uniform(-1e-3, 1e-3, n), dv_p=rng.uniform(-1e-3, 1e-3, n),
+        dksi_p=rng.uniform(-1e-7, 1e-7, n),
+        fx_oa=rng.uniform(-1, 1, n), fy_oa=rng.uniform(-1, 1, n),
+        tq_oa=rng.uniform(-10, 10, n),
+    )
+    d["mass"][5] = 50.0                                 # dies: < min_mass
+    js = js.replace(**{k: jnp.asarray(v) for k, v in d.items()})
+    ts = state_from_numpy(d, device="cpu")
+    mag = 10.0 ** rng.uniform(6, 11, (3, n))
+    sgn = rng.choice([-1.0, 1.0], (3, n))
+    cf = mag * sgn
+    cf[2] *= 1e4                                        # torques
+    jf = gyre_ocean(lx=4 * lx, dx=lx / 8, wind_u=6.0, wind_v=3.0,
+                    dtype=jnp.float64)
+    tf = forcing_from_numpy(to_numpy(jf), device="cpu")
+
+    want = trajectory_update(js, jf, *(jnp.asarray(c) for c in cf), -1e-7,
+                             jnp.asarray(do_int), jcfg)
+    got = ttraj.trajectory_update(ts, tf, *(_t(c) for c in cf), -1e-7,
+                                  do_int, pcfg)
+    g = state_to_numpy(got)
+    for f in dataclasses.fields(want):
+        w = np.asarray(getattr(want, f.name))
+        # (relative to the field's scale: the strain's xy entry of a rigid
+        # rotation is a cancellation at 1e-16 of the diagonal)
+        scale = float(np.max(np.abs(w))) if w.dtype.kind == "f" else 0.0
+        np.testing.assert_allclose(g[f.name], w, rtol=1e-12,
+                                   atol=1e-12 * scale, err_msg=f.name)
+
+    # the clamps really fired
+    limit = d["mass"] / (jcfg.clamps.force_dt_factor * jcfg.numerics.dt)
+    assert np.any(np.maximum(np.abs(cf[0]), np.abs(cf[1])) > 10 * limit)
+    dt = jcfg.numerics.dt
+    accel = dt * np.maximum(np.abs(np.asarray(want.du_p)),
+                            np.abs(np.asarray(want.dv_p)))
+    capped = np.isclose(accel, jcfg.clamps.accel_h_factor
+                        * np.asarray(want.h), rtol=1e-9)
+    assert np.count_nonzero(capped & np.asarray(want.alive)) >= 3
+    assert np.any(np.abs(np.asarray(want.ksi)) == jcfg.clamps.max_spin)
+    assert not bool(want.alive[5])

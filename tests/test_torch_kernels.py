@@ -1,0 +1,82 @@
+"""The Hopper clip kernel (``subzero_tpu_torch/csrc/clip.cu``) and its
+wrapper.  This file imports no JAX, so the card test runs on a machine
+without it:
+
+    python -m pytest tests/test_torch_kernels.py -q --noconftest
+
+On a machine without CUDA the card test skips; the others check that the
+kernel module imports and serves CPU tensors without ``nvcc`` or a GPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
+from subzero_tpu_torch.geometry.polygon import pad_polygons
+from subzero_tpu_torch.kernels import clip as kclip
+
+torch.set_num_threads(1)
+
+
+def pairs(n, seed, vp=16, vq=16, scale=1000.0):
+    """Seeded random convex and concave (star) pairs at ``scale`` meters."""
+    rng = np.random.default_rng(seed)
+
+    def poly(nv_max, center):
+        k = int(rng.integers(3, nv_max + 1))
+        th = np.sort(rng.uniform(0, 2 * np.pi, k))
+        r = rng.uniform(0.5, 1.0, k)
+        if k >= 6 and rng.random() < 0.5:       # concave: alternate radii
+            r = np.where(np.arange(k) % 2 == 0, r, 0.4 * r)
+        return scale * (np.stack([r * np.cos(th), r * np.sin(th)], 1)
+                        + center)
+
+    ps = [poly(vp, (0.0, 0.0)) for _ in range(n)]
+    qs = [poly(vq, rng.uniform(-1.2, 1.2, 2)) for _ in range(n)]
+    return pad_polygons(ps, vp)[0], pad_polygons(qs, vq)[0]
+
+
+def test_module_serves_cpu_without_building(monkeypatch):
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernel")
+
+    monkeypatch.setattr(kclip, "build", no_build)
+    p, q = pairs(13, seed=0)
+    pt, qt = torch.from_numpy(p), torch.from_numpy(q)
+    before = kclip.clip_stats_cuda.launches
+    got = kclip.overlap_stats(pt, qt)
+    want = clip_integral_bm(pt, qt, False)
+    assert torch.equal(got.area, want.area)
+    assert torch.equal(got.n_cross, want.n_cross)
+    assert kclip.clip_stats_cuda.launches == before
+
+
+def test_kernel_entry_refuses_cpu_tensors():
+    p, q = pairs(4, seed=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kclip.clip_stats_cuda(torch.from_numpy(p), torch.from_numpy(q), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,vp,vq", [(13, 16, 16), (4096, 16, 16),
+                                      (1000, 16, 8), (512, 64, 64)])
+def test_kernel_matches_plain_on_card(dtype, b, vp, vq):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    p, q = pairs(b, seed=b + vp, vp=vp, vq=vq)
+    pt = torch.from_numpy(p).to("cuda", dtype)
+    qt = torch.from_numpy(q).to("cuda", dtype)
+    for difference in (False, True):
+        got = kclip.clip_stats_cuda(pt, qt, difference)
+        want = clip_integral_bm(pt, qt, difference)
+        torch.cuda.synchronize()
+        scale = float(want.area.abs().max())
+        tol_area = 1e-5 * scale if dtype == torch.float32 else 1e-9 * scale
+        tol_chord = 1e-2 if dtype == torch.float32 else 1e-9 * 1000.0
+        assert float((got.area - want.area).abs().max()) <= tol_area
+        assert float((got.chord_p - want.chord_p).abs().max()) <= tol_chord
+        assert torch.equal(got.n_cross, want.n_cross)
