@@ -7,13 +7,19 @@ GPU: the quickest proof that the port builds and runs its main path there.
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
 
-1. Build the CUDA clip kernel from ``subzero_tpu_torch/csrc/clip.cu``.
+1. Build the CUDA clip kernel from ``subzero_tpu_torch/csrc/clip.cu``;
+   print ptxas's registers, spills and static shared memory for every
+   template instance, and check the wrapper's shared-memory mirror.
 2. Hold the kernel against its plain PyTorch version on the card, on seeded
-   random convex and concave pairs at 1000 m scale: float32 for
-   intersection and difference at B=13 (ragged tail), B=81,920 with
-   Vp=Vq=16, Vp=16/Vq=8 and Vp=Vq=64 (area within 1e-5 max|area|, chord
-   within 1e-2 m, n_cross exactly equal), and the float64 instance at
-   1e-9 relative; then on the main path's own pairs (below).
+   random convex and concave pairs at 1000 m scale, float32 and float64,
+   intersection and difference: B=13, 81,920 and 81,921 (ragged last
+   tile), B=1 and B one past a tile at Vp=Vq=16; 10,240 at 16x8; 4,096 at
+   64x64; 2,048 at 64x8 and 8x64; triangles; pairs with mid-polygon
+   duplicate vertices; collinear and touching squares (f32: area within
+   1e-5 max|area|, chord within 1e-2 m, n_cross exactly equal; f64 at 1e-9
+   relative).  Then time it at 4,096x64x64 and at the model's default
+   capacity (163,840 pairs of 64 slots, 10-30 real vertices; checked on
+   its first 16,384 pairs), and on the main path's own pairs (below).
 3. Run a walled 256-floe lattice for 20 steps in float64 with
    ``device="cpu"`` (plain clip) and ``device="cuda"`` (kernel) from the
    same numpy inputs: positions within 1e-6 m, velocities within 1e-9 m/s,
@@ -25,9 +31,9 @@ prints no result):
    kernel's launch counter is zeroed before each run and must read one
    launch per periodic step and two per walled step.
 
-Earlier lines report build time, kernel and plain-version times at the main
-path's shapes, floe-steps/s and per-phase CUDA-event times.  The line before
-last holds the card's name and power limit; before it, one JSON object with
+Earlier lines report build time, kernel and plain-version times with the
+bound and the kernel's share of it at each timed shape, floe-steps/s and
+per-phase CUDA-event times.  The line before last holds the card's name and power limit; before it, one JSON object with
 the kernel's record.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -53,13 +59,15 @@ def log(*a):
 # inputs
 # ---------------------------------------------------------------------------
 
-def random_pairs(b, vp, vq, seed, scale=1000.0):
+def random_pairs(b, vp, vq, seed, scale=1000.0, nv_range=None):
     """Seeded random pairs of star-shaped polygons (simple and CCW), padded
-    by repeating vertex 0; about half of them concave."""
+    by repeating vertex 0; about half of them concave.  Each polygon has
+    3..V real vertices, or ``nv_range = (lo, hi)`` of them."""
     rng = np.random.default_rng(seed)
 
     def polys(v, center):
-        nv = rng.integers(3, v + 1, size=b)
+        lo, hi = nv_range or (3, v)
+        nv = rng.integers(lo, hi + 1, size=b)
         k = np.arange(v)
         # nv increasing angles with gaps < pi: star-shaped about the
         # center, so simple and CCW
@@ -74,6 +82,38 @@ def random_pairs(b, vp, vq, seed, scale=1000.0):
     p = polys(vp, np.zeros((b, 2)))
     q = polys(vq, rng.uniform(-1.2, 1.2, size=(b, 2)))
     return p, q
+
+
+def with_duplicates(poly, v_out, seed):
+    """Each [V, 2] row of ``poly`` widened to ``v_out`` slots by repeating
+    randomly chosen slots in place (mid-polygon duplicate vertices) and
+    padding with vertex 0: the same polygon, with zero-length edges
+    inside."""
+    rng = np.random.default_rng(seed)
+    b, v, _ = poly.shape
+    out = np.repeat(poly[:, :1], v_out, axis=1)
+    for k in range(b):
+        reps = 1 + rng.multinomial(v_out - v, np.ones(v) / v)
+        reps = np.where(rng.random(v) < 0.5, reps, 1)
+        row = np.repeat(poly[k], reps, axis=0)
+        out[k, :len(row)] = row
+    return out
+
+
+def degenerate_pairs(v=16, scale=1000.0):
+    """Collinear, touching, identical, nested and disjoint squares, padded
+    by repeating vertex 0."""
+    sq = np.array([[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0], [-1.0, 1.0]])
+    cases = [(sq, sq), (sq, sq + [1.5, 0.0]), (sq, sq + [2.0, 0.0]),
+             (sq, 0.25 * sq), (sq, sq + [1.0, 1.0]), (sq, sq + [5.0, 0.0]),
+             (sq, sq + [2.0, 2.0]), (sq, sq + [0.0, 1.0])]
+
+    def pad(a):
+        return np.concatenate([a, np.repeat(a[:1], v - len(a), 0)])
+
+    p = np.stack([pad(a) for a, _ in cases])
+    q = np.stack([pad(c) for _, c in cases])
+    return scale * p, scale * q
 
 
 def lattice(n_floes, seed=0, pitch=4000.0):
@@ -115,12 +155,16 @@ def lattice_config(n_floes, lx, periodic, dtype, n_mc=256, window=100):
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, reps=20, warmup=3):
-    """Mean milliseconds per call of ``fn`` by CUDA events."""
+    """Mean milliseconds per call of ``fn`` by CUDA events.  A spin kernel
+    of ~10 ms runs first, so the host queues all ``reps`` calls before the
+    card reaches them and the events time the card, not the host's launch
+    rate."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -184,17 +228,89 @@ def compare(got, want, dtype, where):
 # phases
 # ---------------------------------------------------------------------------
 
+def ptxas_instances(log):
+    """(instance, registers, spill stores B, spill loads B, static smem B)
+    for each kernel instance in nvcc's ``-Xptxas -v`` report."""
+    import re
+
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(_Z\w+)", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"clip_kernelI([fd])Li(\d+)E", name)
+            dtype = k and ("float" if k.group(1) == "f" else "double")
+            cur = {"name": f"clip_kernel<{dtype}, G={k.group(2)}>"
+                   if k else name}
+            if not out or out[-1]["name"] != cur["name"]:
+                out.append(cur)
+            else:
+                cur = out[-1]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_st"], cur["spill_ld"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["regs"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return out
+
+
 def phase_build():
+    import ctypes
+
     from subzero_tpu_torch.kernels import clip as kclip
 
     t0 = time.perf_counter()
-    kclip.build()
+    lib = kclip.build()
     log(f"[build] clip.cu -> {kclip.build_info['path']} "
         f"(compiled here: {kclip.build_info['compiled']}) in "
         f"{time.perf_counter() - t0:.3f} s")
-    for line in kclip.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    inst = ptxas_instances(kclip.build_info["log"])
+    if not inst:
+        raise AssertionError("no ptxas report for the clip kernel")
+    for r in inst:
+        log(f"[build] ptxas {r['name']}: {r.get('regs')} registers, "
+            f"{r.get('spill_st')} B spill stores, {r.get('spill_ld')} B "
+            f"spill loads, {r.get('smem')} B static shared memory")
+    # the wrapper's shared-memory mirror must equal the kernel's own
+    fn = lib.clip_tile_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    for g in (1, 2, 4, 8, 16, 32):
+        for vp, vq in ((16, 16), (16, 8), (64, 64), (3, 3)):
+            for isz in (4, 8):
+                if fn(g, vp, vq, isz) != kclip.tile_bytes(g, vp, vq, isz):
+                    raise AssertionError(f"tile_bytes mirror differs at "
+                                         f"G={g} Vp={vp} Vq={vq} {isz} B")
+
+
+def one_past_tile(vp, vq):
+    """The smallest B whose pairs fill one kernel tile and one more pair."""
+    from subzero_tpu_torch.kernels import clip as kclip
+
+    return next(b for b in range(2, 10 ** 6)
+                if b == kclip.THREADS // kclip.lane_group(b, vp, vq) + 1)
+
+
+def check_shapes():
+    """(label, p, q) numpy pairs that the kernel is held against the plain
+    version on."""
+    cases = []
+    for b, vp, vq in [(13, 16, 16), (81920, 16, 16), (10240, 16, 8),
+                      (4096, 64, 64), (2048, 64, 8), (2048, 8, 64),
+                      (1, 16, 16), (one_past_tile(16, 16), 16, 16),
+                      (81921, 16, 16), (4096, 3, 3)]:
+        cases.append((f"B={b} Vp={vp} Vq={vq}",
+                      *random_pairs(b, vp, vq, seed=b + vp + vq)))
+    p, q = random_pairs(2048, 16, 16, seed=5)
+    cases.append(("duplicates B=2048 Vp=Vq=24",
+                  with_duplicates(p, 24, seed=6), with_duplicates(q, 24, 7)))
+    cases.append(("degenerate B=8 Vp=Vq=16", *degenerate_pairs()))
+    return cases
 
 
 def phase_kernel_vs_plain():
@@ -203,10 +319,9 @@ def phase_kernel_vs_plain():
     from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
     from subzero_tpu_torch.kernels import clip as kclip
 
-    shapes = [(13, 16, 16), (81920, 16, 16), (10240, 16, 8), (4096, 64, 64)]
     worst = 0.0
-    for b, vp, vq in shapes:
-        p_np, q_np = random_pairs(b, vp, vq, seed=b + vp + vq)
+    for label, p_np, q_np in check_shapes():
+        g = kclip.lane_group(*p_np.shape[:2], q_np.shape[1])
         for dtype in (torch.float32, torch.float64):
             p = torch.from_numpy(p_np).to("cuda", dtype)
             q = torch.from_numpy(q_np).to("cuda", dtype)
@@ -214,17 +329,66 @@ def phase_kernel_vs_plain():
                 got = kclip.clip_stats_cuda(p, q, diff)
                 want = clip_integral_bm(p, q, diff)
                 da, dc = compare(got, want, dtype,
-                                 f"B={b} Vp={vp} Vq={vq} {dtype} "
+                                 f"{label} {dtype} "
                                  f"{'difference' if diff else 'overlap'}")
-                log(f"[kernel] B={b:6d} Vp={vp:2d} Vq={vq:2d} "
+                log(f"[kernel] {label:28s} G={g:2d} "
                     f"{str(dtype)[6:]:7s} {'diff' if diff else 'ovl '} "
                     f"max|d area| {da:.3e}  max|d chord| {dc:.3e}  "
                     f"n_cross equal")
-                if dtype == torch.float32 and (b, vp, vq, diff) == (
-                        81920, 16, 16, False):
+                if dtype == torch.float32:
                     worst = max(worst, da)
     torch.cuda.synchronize()
     return worst
+
+
+def time_kernel(name, a, b, diff, plain_on=None):
+    """Kernel and plain-version times at (a, b), with the bound and the
+    kernel's share of it; the plain version runs on the first ``plain_on``
+    pairs where its [Vp, Vq, B] temporaries would not fit at full B."""
+    from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
+    from subzero_tpu_torch.kernels import clip as kclip
+
+    ms = cuda_ms(lambda: kclip.clip_stats_cuda(a, b, diff))
+    n = plain_on or a.shape[0]
+    plain = cuda_ms(lambda: clip_integral_bm(a[:n], b[:n], diff), reps=5)
+    bound, by, nbytes, flops = clip_bound_ms(a, b)
+    g = kclip.lane_group(a.shape[0], a.shape[1], b.shape[1])
+    log(f"[time] {name}: B={a.shape[0]} Vp={a.shape[1]} Vq={b.shape[1]} "
+        f"G={g}  kernel {ms:.4f} ms  plain {plain:.4f} ms"
+        + (f" (on {n} pairs)" if plain_on else "")
+        + f"  bound {bound:.4f} ms ({by}: {nbytes} B, {flops:.4g} flop)  "
+        f"share of bound {bound / ms:.1%}  smem/block "
+        f"{kclip.tile_bytes(g, a.shape[1], b.shape[1], a.element_size())} B")
+    return ms, plain, bound, by
+
+
+def phase_wide_shapes():
+    """The kernel at 4,096 x 64 x 64 and at the model's default capacity
+    (10,240 floes x K=16 pairs of 64 slots, 10-30 real vertices), timed;
+    the latter held against the plain version on its first 16,384 pairs."""
+    import torch
+
+    from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
+    from subzero_tpu_torch.kernels import clip as kclip
+
+    p, q = (torch.from_numpy(x).to("cuda", torch.float32)
+            for x in random_pairs(4096, 64, 64, seed=4096 + 128))
+    time_kernel("wide 64x64", p, q, False)
+    p, q = (torch.from_numpy(x).to("cuda", torch.float32)
+            for x in random_pairs(163840, 64, 64, seed=11,
+                                  nv_range=(10, 30)))
+    n = 16384
+    got = kclip.clip_stats_cuda(p, q, False)
+    want = clip_integral_bm(p[:n], q[:n], False)
+    sub = type(got)(*(x[:n] for x in got))
+    da, dc = compare(sub, want, torch.float32, "default-capacity shape")
+    log(f"[kernel] default capacity B=163840 Vp=Vq=64 (10-30 real): first "
+        f"{n} pairs max|d area| {da:.3e}  max|d chord| {dc:.3e}  n_cross "
+        f"equal")
+    time_kernel("default capacity", p, q, False, plain_on=n)
+    del p, q, got, want, sub
+    torch.cuda.empty_cache()
+    return da
 
 
 def main_path_pairs(state, cfg):
@@ -352,13 +516,9 @@ def phase_main_path(kernel_record):
         got = kclip.clip_stats_cuda(a, b, diff)
         want = clip_integral_bm(a, b, diff)
         da, dc = compare(got, want, torch.float32, f"main-path {name}")
-        ms = cuda_ms(lambda: kclip.clip_stats_cuda(a, b, diff))
-        plain = cuda_ms(lambda: clip_integral_bm(a, b, diff), reps=5)
-        bound, by, nbytes, flops = clip_bound_ms(a, b)
-        log(f"[kernel] main-path {name}: B={a.shape[0]} Vp={a.shape[1]} "
-            f"Vq={b.shape[1]}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-            f"bound {bound:.4f} ms ({by}: {nbytes} B, {flops:.4g} flop)  "
-            f"max|d area| {da:.3e}  max|d chord| {dc:.3e}")
+        log(f"[kernel] main-path {name}: max|d area| {da:.3e}  "
+            f"max|d chord| {dc:.3e}  n_cross equal")
+        ms, plain, bound, by = time_kernel(f"main-path {name}", a, b, diff)
         if not diff:
             kernel_record.update(max_abs_err=da, ms=ms, plain_ms=plain,
                                  bound_ms=bound, bound_by=by)
@@ -410,6 +570,7 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_build()
     worst = phase_kernel_vs_plain()
+    worst = max(worst, phase_wide_shapes())
     phase_step_parity()
     record = {
         "name": "clip", "route": "cuda",

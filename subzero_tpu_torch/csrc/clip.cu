@@ -8,42 +8,77 @@
 // by the inside-the-other indicator integrals (I0, I1) on two carrier lines
 // offset by ±eps, and Green's theorem sums the weighted edges.  The math is the
 // written spec in subzero_tpu_torch/geometry/clip_integral.py (the plain
-// PyTorch version); this kernel evaluates the same expressions in the same
-// order, per pair.
+// PyTorch version); this kernel evaluates every (P edge, Q edge) pair with the
+// same expressions in the same order.
 //
-// What bounds it on this card.  Per pair it does ~90 floating-point operations
-// for every (P edge, Q edge) pair and side, against 8·(Vp+Vq) bytes of input
-// (f32): at the main path's overlap shape (B = 81,920, Vp = Vq = 16) that is
-// ~3.8 GFLOP against 23 MB, so the dense formulation is bound by f32
-// arithmetic, not by memory.
+// What bounds it on this card.  Only edges of non-zero length do work (the
+// padding slots repeat vertex 0, and a zero-length edge adds nothing to any
+// sum).  At the main path's overlap shape (B = 81,920 quads padded to
+// Vp = Vq = 16) that is 4 x 4 real edge pairs per pair: ~2.4e8 operations
+// (3.5 us at 67 TFLOP/s f32) against 23 MB of input and output (6.8 us at
+// 3.35 TB/s), so bytes bound it.  Only at many real vertices (tens per
+// polygon) do the operations take over.  The pair-local work is divisions,
+// comparisons and clamps, not a matrix product: tensor cores do not apply.
 //
-// What this simple design does about it.
-//   * One thread per pair, grid-stride loop; nothing is shared between pairs,
-//     so there is no synchronisation and no shared memory.
-//   * It reads P and Q from the public [B, V, 2] layout (no rolled copy, no
-//     [V, B] transpose in device memory, no padding copy: the ragged tail is
-//     masked by the loop bound).  Each vertex comes from device memory once;
-//     the inner loops re-read it from L1.
-//   * Zero-length edges (the padding slots repeat vertex 0) contribute exactly
-//     nothing to any sum, so both loops skip them.  On the quad lattice of the
-//     main path that removes 15/16 of the edge pairs; the work then scales with
-//     the real vertex counts instead of the padded capacity.
-//   * It loops over P's edges against Q's edges, then Q's edges against P's
-//     (as _side_sums does in the Pallas kernel), recomputing the crossing
-//     geometry in the second pass rather than holding [Vq] accumulators; the
-//     proper-crossing count rides on the first pass.
-//   * Templated on float and double: the f64 instance lets the step be checked
-//     on the card against the CPU at float64 tolerances.
+// What the design does about it.
+//   * Coalesced staging.  A block of kThreads threads takes a tile of Bt
+//     consecutive pairs, whose [Bt, Vp, 2] and [Bt, Vq, 2] rows are one
+//     contiguous span each, and copies both spans into shared memory with
+//     16-byte loads (element loads for a misaligned span or its tail).  No
+//     thread reads device memory inside the edge loops.  The grid is
+//     persistent (as many blocks as fit on the SMs, each walking tiles) and
+//     the last tile is masked.
+//   * Compacted real-edge lists.  One warp segment per pair reduces eps over
+//     all vertices, padding included, then writes each polygon's edges of
+//     non-zero length, in their original order, into shared memory (ballot and
+//     prefix count): x0, y0, dx = x1 - x0, dy = y1 - y0, with the pair's eps
+//     and real-edge counts beside them.  The edge loops then run over
+//     n_p x n_q real edge pairs instead of Vp x Vq slots.  Lists are stored
+//     [slot][pair] with a padded stride, so the lanes of a warp read
+//     consecutive entries without bank conflicts.  Each edge's eps factors
+//     ct_f, cs_f (a square root and a division) are computed once, by the
+//     lane that takes it as its outer edge, and kept in registers: stored in
+//     the lists they cost a third more shared memory, fewer resident blocks,
+//     and measured slower (PERF.md).
+//   * Lane groups.  G lanes (a template parameter, 1..32) share a pair: in the
+//     P pass they take P's real edges in turn, each looping over Q's list in
+//     order; in the Q pass the other way round.  The per-lane Green sums and
+//     crossing counts are then reduced with __shfl_xor_sync.  The wrapper
+//     picks G from (B, Vp, Vq): more lanes where B is small or V large, so
+//     the card fills at the wall shape and at wide polygons.
+//   * Float and double instances: the f64 one lets the step be checked on the
+//     card against the CPU at float64 tolerances.
 //
 // Exactness of n_cross.  The crossing count is an integer decision on
 // t0, s0 ∈ [0, 1).  Build with --fmad=false (no contraction of a*b - c*d into
 // an FMA) and without --use_fast_math, so that products, differences, 1/x and
 // sqrt round as IEEE operations, exactly as the plain version computes them on
-// the CPU and on the card.
+// the CPU and on the card.  Every (P edge, Q edge) pair is evaluated in the
+// plain version's operation order and the inner sums run in the original edge
+// order; only the order of the outer Green sums (split over G lanes) differs.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
+
+constexpr int kThreads = 128;  // threads per block; Bt = kThreads / G pairs
+
+template <typename T>
+struct alignas(16) Edge {  // one real edge: start point and edge vector
+  T x0, y0, dx, dy;
+};
+
+// Dynamic shared memory of one block; kernels/clip.py:tile_bytes mirrors it.
+__host__ __device__ inline long long tile_bytes(int g, int vp, int vq,
+                                                int itemsize) {
+  const long long bt = kThreads / g, ld = bt + 1, v = vp + vq;
+  return bt * v * 2 * itemsize          // raw staged rows
+         + v * ld * 4 * itemsize        // Edge lists
+         + bt * itemsize                // eps per pair
+         + 2 * bt * 4;                  // real-edge counts per pair
+}
 
 template <typename T>
 __device__ __forceinline__ T clamp01(T v, T hi) {
@@ -55,46 +90,148 @@ __device__ __forceinline__ T inv_len_of(T elen2) {
   return elen2 > T(0) ? T(1) / sqrt(elen2) : T(0);
 }
 
+// Cooperative copy of n elements from device memory to shared memory: 16-byte
+// loads where the source is 16-byte aligned, element loads for the rest.
 template <typename T>
-__global__ void clip_kernel(const T* __restrict__ p, const T* __restrict__ q,
-                            long long b, int vp, int vq, bool difference,
-                            T eps_scale, T* __restrict__ area_out,
-                            T* __restrict__ cent_out, T* __restrict__ chord_out,
-                            int* __restrict__ ncross_out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < b;
-       k += stride) {
-    const T* P = p + k * (2LL * vp);
-    const T* Q = q + k * (2LL * vq);
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
+                                      long long n) {
+  constexpr int kPer = 16 / sizeof(T);
+  long long head = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const long long nv = n / kPer;
+    for (long long c = threadIdx.x; c < nv; c += kThreads) {
+      *reinterpret_cast<int4*>(dst + c * kPer) =
+          __ldg(reinterpret_cast<const int4*>(src + c * kPer));
+    }
+    head = nv * kPer;
+  }
+  for (long long i = head + threadIdx.x; i < n; i += kThreads) {
+    dst[i] = __ldg(src + i);
+  }
+}
 
-    // eps = max(max|coords of P and Q|, 1) * eps_T^(2/3)
-    T m = T(0);
-    for (int i = 0; i < vp; ++i) {
-      m = fmax(m, fmax(fabs(__ldg(P + 2 * i)), fabs(__ldg(P + 2 * i + 1))));
+// Compact one polygon's edges of non-zero length (in their original order)
+// into its [slot][pair] lists; run by the S lanes of one warp segment, all 32
+// lanes of the warp together.  Returns the real-edge count.
+template <typename T>
+__device__ __forceinline__ int compact(const T* r, int v, bool act, int s, int seg_lane, int seg_base,
+                                       Edge<T>* edges, int ld) {
+  const unsigned seg_mask =
+      s == 32 ? 0xffffffffu : (((1u << s) - 1u) << seg_base);
+  int count = 0;
+  for (int base = 0; base < v; base += s) {
+    const int i = base + seg_lane;
+    bool real = false;
+    T x0 = T(0), y0 = T(0), dx = T(0), dy = T(0);
+    if (act && i < v) {
+      const int in = (i + 1 == v) ? 0 : i + 1;
+      x0 = r[2 * i];
+      y0 = r[2 * i + 1];
+      dx = r[2 * in] - x0;
+      dy = r[2 * in + 1] - y0;
+      real = !(dx == T(0) && dy == T(0));
     }
-    for (int j = 0; j < vq; ++j) {
-      m = fmax(m, fmax(fabs(__ldg(Q + 2 * j)), fabs(__ldg(Q + 2 * j + 1))));
+    const unsigned mine =
+        (__ballot_sync(0xffffffffu, real) & seg_mask) >> seg_base;
+    if (real) {
+      const int slot = count + __popc(mine & ((1u << seg_lane) - 1u));
+      edges[slot * ld] = Edge<T>{x0, y0, dx, dy};
     }
-    const T eps = fmax(m, T(1)) * eps_scale;
+    count += __popc(mine);
+  }
+  return count;
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+clip_kernel(const T* __restrict__ p, const T* __restrict__ q, long long b,
+            int vp, int vq, bool difference, T eps_scale,
+            T* __restrict__ area_out, T* __restrict__ cent_out,
+            T* __restrict__ chord_out, int* __restrict__ ncross_out) {
+  constexpr int Bt = kThreads / G;
+  constexpr int ld = Bt + 1;
+  const long long ntiles = (b + Bt - 1) / Bt;
+  const int v = vp + vq;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* raw = reinterpret_cast<T*>(smem);
+  Edge<T>* ep = reinterpret_cast<Edge<T>*>(raw + Bt * v * 2);
+  Edge<T>* eq = ep + vp * ld;
+  T* eps_s = reinterpret_cast<T*>(eq + vq * ld);
+  int* np_s = reinterpret_cast<int*>(eps_s + Bt);
+  int* nq_s = np_s + Bt;
+
+  // Warp segments for compaction: S lanes per pair, S a power of two.
+  int s = 1;
+  while (s < 32 && s < (vp > vq ? vp : vq)) s <<= 1;
+  const int lane = threadIdx.x & 31;
+  const int seg_lane = lane & (s - 1);
+  const int seg_base = lane & ~(s - 1);
+  const int seg = threadIdx.x / s;
+  const int nseg = kThreads / s;
+  // Lane groups for the edge loops.
+  const int t = threadIdx.x / G;
+  const int g = threadIdx.x % G;
+
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    // ---- stage the tile's two contiguous spans
+    const long long k0 = tile * Bt;
+    const long long nv = (b - k0 < Bt) ? b - k0 : Bt;
+    stage(raw, p + k0 * 2 * vp, nv * 2 * vp);
+    stage(raw + Bt * 2 * vp, q + k0 * 2 * vq, nv * 2 * vq);
+    __syncthreads();
+
+    // ---- eps and the compacted real-edge lists, one warp segment per pair
+    const T* rp0 = raw;
+    const T* rq0 = raw + Bt * 2 * vp;
+    for (int it = 0; it * nseg < Bt; ++it) {
+      const int tt = seg + it * nseg;
+      const bool act = tt < Bt && k0 + tt < b;
+      const T* rp = rp0 + tt * 2 * vp;
+      const T* rq = rq0 + tt * 2 * vq;
+      // eps = max(max|coords of P and Q|, 1) * eps_T^(2/3), over all slots
+      T m = T(0);
+      if (act) {
+        for (int i = seg_lane; i < vp; i += s)
+          m = fmax(m, fmax(fabs(rp[2 * i]), fabs(rp[2 * i + 1])));
+        for (int j = seg_lane; j < vq; j += s)
+          m = fmax(m, fmax(fabs(rq[2 * j]), fabs(rq[2 * j + 1])));
+      }
+      for (int off = s >> 1; off > 0; off >>= 1)
+        m = fmax(m, __shfl_xor_sync(0xffffffffu, m, off));
+      const T eps = fmax(m, T(1)) * eps_scale;
+      const int ttc = tt < Bt ? tt : 0;  // inactive segments write nothing
+      const int n_p = compact(rp, vp, act, s, seg_lane, seg_base,
+                              ep + ttc, ld);
+      const int n_q = compact(rq, vq, act, s, seg_lane, seg_base,
+                              eq + ttc, ld);
+      if (seg_lane == 0 && tt < Bt) {
+        eps_s[tt] = eps;
+        np_s[tt] = n_p;
+        nq_s[tt] = n_q;
+      }
+    }
+    __syncthreads();
+
+    const int n_p = np_s[t], n_q = nq_s[t];
+    const T eps = eps_s[t];
+    const Edge<T>* lp = ep + t;
+    const Edge<T>* lq = eq + t;
 
     // ---- P edges against Q (+ proper crossing count) ----------------------
     T a_p = T(0), mx_p = T(0), my_p = T(0), chx = T(0), chy = T(0);
     int ncr = 0;
-    for (int i = 0; i < vp; ++i) {
-      const int in = (i + 1 == vp) ? 0 : i + 1;
-      const T px0 = __ldg(P + 2 * i), py0 = __ldg(P + 2 * i + 1);
-      const T dx = __ldg(P + 2 * in) - px0, dy = __ldg(P + 2 * in + 1) - py0;
-      if (dx == T(0) && dy == T(0)) continue;  // padded edge: contributes 0
+    for (int i = g; i < n_p; i += G) {
+      const Edge<T> e = lp[i * ld];
+      const T px0 = e.x0, py0 = e.y0, dx = e.dx, dy = e.dy;
       const T elen2 = dx * dx + dy * dy;
       const T inv_len = inv_len_of(elen2);
-      const T ct_f = eps * inv_len;            // ct = ddq * ct_f * inv_denom
-      const T cs_f = eps * elen2 * inv_len;    // cs = cs_f * inv_denom
+      const T ct_f = eps * inv_len;           // ct = ddq * ct_f * inv_denom
+      const T cs_f = eps * elen2 * inv_len;   // cs = cs_f * inv_denom
       T s0p = T(0), s0m = T(0), s1p = T(0), s1m = T(0);
-      for (int j = 0; j < vq; ++j) {
-        const int jn = (j + 1 == vq) ? 0 : j + 1;
-        const T qx0 = __ldg(Q + 2 * j), qy0 = __ldg(Q + 2 * j + 1);
-        const T dqx = __ldg(Q + 2 * jn) - qx0, dqy = __ldg(Q + 2 * jn + 1) - qy0;
-        if (dqx == T(0) && dqy == T(0)) continue;
+      for (int j = 0; j < n_q; ++j) {
+        const Edge<T> o = lq[j * ld];
+        const T qx0 = o.x0, qy0 = o.y0, dqx = o.dx, dqy = o.dy;
         const T denom = dx * dqy - dy * dqx;
         if (!(fabs(denom) > T(0))) continue;   // parallel: no crossing
         const T inv_denom = T(1) / denom;
@@ -106,17 +243,17 @@ __global__ void clip_kernel(const T* __restrict__ p, const T* __restrict__ q,
         const T ct = ddq * ct_f * inv_denom;
         const T cs = cs_f * inv_denom;
         {  // carrier line offset +eps
-          const T t = t0 - ct, s = s0 - cs;
-          if (s >= T(0) && s < T(1)) {
-            const T tc = clamp01(t, T(1));
+          const T tt = t0 - ct, ss = s0 - cs;
+          if (ss >= T(0) && ss < T(1)) {
+            const T tc = clamp01(tt, T(1));
             s0p += delta * (T(1) - tc);
             s1p += delta * (T(1) - tc * tc);
           }
         }
         {  // carrier line offset -eps
-          const T t = t0 + ct, s = s0 + cs;
-          if (s >= T(0) && s < T(1)) {
-            const T tc = clamp01(t, T(1));
+          const T tt = t0 + ct, ss = s0 + cs;
+          if (ss >= T(0) && ss < T(1)) {
+            const T tc = clamp01(tt, T(1));
             s0m += delta * (T(1) - tc);
             s1m += delta * (T(1) - tc * tc);
           }
@@ -136,30 +273,23 @@ __global__ void clip_kernel(const T* __restrict__ p, const T* __restrict__ q,
       chx += dx * i0;
       chy += dy * i0;
     }
-    a_p = T(0.5) * a_p;
-    mx_p = mx_p / T(3);
-    my_p = my_p / T(3);
 
     // ---- Q edges against P ------------------------------------------------
     // Same crossing geometry as above (P-first orientation, so every value is
     // bit-identical to the first pass); the Q side reads (s0, t0) and the
     // corrections pick up a sign through -inv_denom.
     T a_q = T(0), mx_q = T(0), my_q = T(0);
-    for (int j = 0; j < vq; ++j) {
-      const int jn = (j + 1 == vq) ? 0 : j + 1;
-      const T qx0 = __ldg(Q + 2 * j), qy0 = __ldg(Q + 2 * j + 1);
-      const T dqx = __ldg(Q + 2 * jn) - qx0, dqy = __ldg(Q + 2 * jn + 1) - qy0;
-      if (dqx == T(0) && dqy == T(0)) continue;
+    for (int j = g; j < n_q; j += G) {
+      const Edge<T> o = lq[j * ld];
+      const T qx0 = o.x0, qy0 = o.y0, dqx = o.dx, dqy = o.dy;
       const T elen2 = dqx * dqx + dqy * dqy;
       const T inv_len = inv_len_of(elen2);
-      const T ct_f = eps * inv_len;
-      const T cs_f = eps * elen2 * inv_len;
+      const T ct_f = eps * inv_len;           // ct = ddq * ct_f * inv_denom
+      const T cs_f = eps * elen2 * inv_len;   // cs = cs_f * inv_denom
       T s0p = T(0), s0m = T(0), s1p = T(0), s1m = T(0);
-      for (int i = 0; i < vp; ++i) {
-        const int in = (i + 1 == vp) ? 0 : i + 1;
-        const T px0 = __ldg(P + 2 * i), py0 = __ldg(P + 2 * i + 1);
-        const T dx = __ldg(P + 2 * in) - px0, dy = __ldg(P + 2 * in + 1) - py0;
-        if (dx == T(0) && dy == T(0)) continue;
+      for (int i = 0; i < n_p; ++i) {
+        const Edge<T> e = lp[i * ld];
+        const T px0 = e.x0, py0 = e.y0, dx = e.dx, dy = e.dy;
         const T denom = dx * dqy - dy * dqx;
         if (!(fabs(denom) > T(0))) continue;
         const T inv_denom = T(1) / denom;
@@ -195,57 +325,120 @@ __global__ void clip_kernel(const T* __restrict__ p, const T* __restrict__ q,
       mx_q += c * (qx0 * i0 + dqx * i1);
       my_q += c * (qy0 * i0 + dqy * i1);
     }
-    a_q = T(0.5) * a_q;
-    mx_q = mx_q / T(3);
-    my_q = my_q / T(3);
 
-    T area, mx, my;
-    if (difference) {
-      area = a_p - a_q; mx = mx_p - mx_q; my = my_p - my_q;
-    } else {
-      area = a_p + a_q; mx = mx_p + mx_q; my = my_p + my_q;
+    // ---- reduce over the G lanes of the pair -----------------------------
+#pragma unroll
+    for (int off = G >> 1; off > 0; off >>= 1) {
+      a_p += __shfl_xor_sync(0xffffffffu, a_p, off);
+      mx_p += __shfl_xor_sync(0xffffffffu, mx_p, off);
+      my_p += __shfl_xor_sync(0xffffffffu, my_p, off);
+      chx += __shfl_xor_sync(0xffffffffu, chx, off);
+      chy += __shfl_xor_sync(0xffffffffu, chy, off);
+      a_q += __shfl_xor_sync(0xffffffffu, a_q, off);
+      mx_q += __shfl_xor_sync(0xffffffffu, mx_q, off);
+      my_q += __shfl_xor_sync(0xffffffffu, my_q, off);
+      ncr += __shfl_xor_sync(0xffffffffu, ncr, off);
     }
-    const bool ok = fabs(area) > T(1e-9);
-    area_out[k] = area;
-    cent_out[2 * k] = ok ? mx / area : T(0);
-    cent_out[2 * k + 1] = ok ? my / area : T(0);
-    chord_out[2 * k] = chx;
-    chord_out[2 * k + 1] = chy;
-    ncross_out[k] = ncr;
+    const long long k = k0 + t;
+    if (g == 0 && k < b) {
+      a_p = T(0.5) * a_p;
+      mx_p = mx_p / T(3);
+      my_p = my_p / T(3);
+      a_q = T(0.5) * a_q;
+      mx_q = mx_q / T(3);
+      my_q = my_q / T(3);
+      T area, mx, my;
+      if (difference) {
+        area = a_p - a_q; mx = mx_p - mx_q; my = my_p - my_q;
+      } else {
+        area = a_p + a_q; mx = mx_p + mx_q; my = my_p + my_q;
+      }
+      const bool ok = fabs(area) > T(1e-9);
+      area_out[k] = area;
+      cent_out[2 * k] = ok ? mx / area : T(0);
+      cent_out[2 * k + 1] = ok ? my / area : T(0);
+      chord_out[2 * k] = chx;
+      chord_out[2 * k + 1] = chy;
+      ncross_out[k] = ncr;
+    }
   }
 }
 
-constexpr int kThreads = 128;
-
-template <typename T>
-int launch(const T* p, const T* q, long long b, int vp, int vq, int difference,
-           double eps_scale, T* area, T* cent, T* chord, int* ncross,
-           cudaStream_t stream) {
-  long long blocks = (b + kThreads - 1) / kThreads;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride covers the rest
-  clip_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+template <typename T, int G>
+int launch_g(const T* p, const T* q, long long b, int vp, int vq,
+             int difference, double eps_scale, T* area, T* cent, T* chord,
+             int* ncross, cudaStream_t stream) {
+  auto kernel = clip_kernel<T, G>;
+  const long long smem = tile_bytes(G, vp, vq, (int)sizeof(T));
+  // Per instance: the shared-memory size last configured and its occupancy
+  // (the step launches the same shapes every step).
+  static long long known_smem = -1;
+  static int per_sm = 0;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem != known_smem) {
+    if (smem > 48 * 1024)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, smem);
+    known_smem = err == cudaSuccess ? smem : -1;
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long ntiles = (b + kThreads / G - 1) / (kThreads / G);
+  long long blocks = (long long)per_sm * sms;
+  if (blocks > ntiles) blocks = ntiles;
+  kernel<<<(unsigned)blocks, kThreads, (size_t)smem, stream>>>(
       p, q, b, vp, vq, difference != 0, (T)eps_scale, area, cent, chord,
       ncross);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const T* p, const T* q, long long b, int vp, int vq, int difference,
+           double eps_scale, int lanes, T* area, T* cent, T* chord,
+           int* ncross, cudaStream_t stream) {
+  switch (lanes) {
+#define CLIP_CASE(G)                                                       \
+  case G:                                                                  \
+    return launch_g<T, G>(p, q, b, vp, vq, difference, eps_scale, area,    \
+                          cent, chord, ncross, stream);
+    CLIP_CASE(1) CLIP_CASE(2) CLIP_CASE(4) CLIP_CASE(8) CLIP_CASE(16)
+    CLIP_CASE(32)
+#undef CLIP_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns cudaGetLastError() after the launch (0 = success).
+// Dynamic shared memory one block takes at (lanes, vp, vq, itemsize).
+long long clip_tile_bytes(int lanes, int vp, int vq, int itemsize) {
+  return tile_bytes(lanes, vp, vq, itemsize);
+}
+
+// Each returns cudaGetLastError() after the launch (0 = success).  `lanes` is
+// the lane-group width G: 1, 2, 4, 8, 16 or 32.
 int clip_stats_f32(const float* p, const float* q, long long b, int vp, int vq,
-                   int difference, double eps_scale, float* area, float* cent,
-                   float* chord, int* ncross, void* stream) {
-  return launch<float>(p, q, b, vp, vq, difference, eps_scale, area, cent,
-                       chord, ncross, (cudaStream_t)stream);
+                   int difference, double eps_scale, int lanes, float* area,
+                   float* cent, float* chord, int* ncross, void* stream) {
+  return launch<float>(p, q, b, vp, vq, difference, eps_scale, lanes, area,
+                       cent, chord, ncross, (cudaStream_t)stream);
 }
 
 int clip_stats_f64(const double* p, const double* q, long long b, int vp,
-                   int vq, int difference, double eps_scale, double* area,
-                   double* cent, double* chord, int* ncross, void* stream) {
-  return launch<double>(p, q, b, vp, vq, difference, eps_scale, area, cent,
-                        chord, ncross, (cudaStream_t)stream);
+                   int vq, int difference, double eps_scale, int lanes,
+                   double* area, double* cent, double* chord, int* ncross,
+                   void* stream) {
+  return launch<double>(p, q, b, vp, vq, difference, eps_scale, lanes, area,
+                        cent, chord, ncross, (cudaStream_t)stream);
 }
 
 }  // extern "C"

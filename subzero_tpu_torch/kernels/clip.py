@@ -17,6 +17,10 @@ imported, so the CPU path works without ``nvcc`` or a GPU.
 
 ``clip_stats_cuda.launches`` counts kernel launches (one per call that
 reaches the kernel), so a run can show its main path went through it.
+
+The kernel gives each pair a group of G lanes; ``lane_group(B, Vp, Vq)``
+picks G, and ``tile_bytes`` is the shared memory one block of the kernel
+takes (the wrapper raises on shapes whose tile does not fit).
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ __all__ = [
     "clip_stats",
     "clip_stats_cuda",
     "build",
+    "compile_source",
+    "lane_group",
+    "tile_bytes",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -53,6 +60,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+
+# Threads per block of the kernel (csrc/clip.cu:kThreads); a block takes
+# THREADS // G pairs.
+THREADS = 128
+# Dynamic shared memory a block may take on sm_90 (227 KB).
+SMEM_LIMIT = 232448
+# Threads that fill an H100: 132 SMs x 512.
+FILL_THREADS = 132 * 512
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -70,55 +85,96 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA clip kernel cannot be built")
 
 
+def compile_source(source: Path) -> tuple[Path, bool, str]:
+    """Compile ``source`` with ``NVCC_FLAGS`` into a shared library under
+    ``BUILD_DIR``, once per hash of source and flags.  Returns the library
+    path, whether it was compiled by this call, and nvcc's ``-Xptxas -v``
+    report (kept beside the library)."""
+    source = Path(source)
+    key = hashlib.sha256(source.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    so = BUILD_DIR / f"{source.stem}-{key[:16]}.so"
+    if so.exists():
+        log = so.with_suffix(".log")
+        return so, False, log.read_text() if log.exists() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+                             capture_output=True, text=True)
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)   # atomic: concurrent builds agree
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so, True, log
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library.
 
     Fills ``build_info`` with the library path, whether it was compiled in
-    this process, the seconds that took and nvcc's ``-Xptxas -v`` report
-    (kept beside the library).
+    this process, the seconds that took and nvcc's ``-Xptxas -v`` report.
     """
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        src = SOURCE.read_bytes()
-        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        so = BUILD_DIR / f"clip-{key[:16]}.so"
         t0 = time.perf_counter()
-        log = ""
-        compiled = not so.exists()
-        if compiled:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                res = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                    capture_output=True, text=True)
-                log = res.stdout + res.stderr
-                if res.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
-                so.with_suffix(".log").write_text(log)
-                os.replace(tmp, so)   # atomic: concurrent builders agree
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        elif so.with_suffix(".log").exists():
-            log = so.with_suffix(".log").read_text()
+        so, compiled, log = compile_source(SOURCE)
         lib = ctypes.CDLL(str(so))
         for name in ("clip_stats_f32", "clip_stats_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
         build_info.update(path=str(so), compiled=compiled,
                           seconds=time.perf_counter() - t0, log=log)
         _lib = lib
         return lib
+
+
+def tile_bytes(g: int, vp: int, vq: int, itemsize: int) -> int:
+    """Dynamic shared memory of one kernel block at lane-group width ``g``
+    (mirrors ``tile_bytes`` in csrc/clip.cu): the staged raw tile, the
+    real-edge lists (x0, y0, dx, dy per slot, stride pairs + 1), and eps
+    and the two real-edge counts per pair."""
+    bt = THREADS // g
+    ld, v = bt + 1, vp + vq
+    return (bt * v * 2 * itemsize + v * ld * 4 * itemsize + bt * itemsize
+            + 2 * bt * 4)
+
+
+def lane_group(b: int, vp: int, vq: int) -> int:
+    """Lanes per pair, G in {1, 2, 4, 8, 16, 32}, for B pairs of Vp x Vq
+    slots.
+
+    About one lane per real edge of the wider polygon, taking its real
+    edges as a quarter of up to 16 slots (the quad lattice pads 4 vertices
+    to 16) and half of more (the default capacity holds 10-30 vertices in
+    64); more while the B·G threads would not fill the card; at least the
+    smallest G whose tile fits in shared memory in float64; at most the
+    wider polygon's slot count.  Fitted to a sweep of G on an H100 (see
+    PERF.md)."""
+    vmax = max(vp, vq)
+    want = vmax // 4 if vmax <= 16 else vmax // 2
+    g = 1
+    while g < 32 and tile_bytes(g, vp, vq, 8) > SMEM_LIMIT:
+        g *= 2
+    cap = 1
+    while cap < min(vmax, 32):
+        cap *= 2
+    while g < cap and (g < want or b * g < FILL_THREADS):
+        g *= 2
+    return g
 
 
 def _check(p: torch.Tensor, q: torch.Tensor):
@@ -143,6 +199,11 @@ def clip_stats_cuda(p: torch.Tensor, q: torch.Tensor,
     if not (p.is_contiguous() and q.is_contiguous()):
         raise ValueError("clip_stats_cuda needs contiguous inputs")
     b, vp, vq = p.shape[0], p.shape[1], q.shape[1]
+    g = lane_group(b, vp, vq)
+    if tile_bytes(g, vp, vq, p.element_size()) > SMEM_LIMIT:
+        raise ValueError(f"clip kernel: Vp={vp}, Vq={vq} in {p.dtype} need "
+                         f"{tile_bytes(g, vp, vq, p.element_size())} B of "
+                         f"shared memory per block, more than {SMEM_LIMIT}")
     kw = dict(dtype=p.dtype, device=p.device)
     area = torch.empty((b,), **kw)
     cent = torch.empty((b, 2), **kw)
@@ -156,7 +217,7 @@ def clip_stats_cuda(p: torch.Tensor, q: torch.Tensor,
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = fn(p.data_ptr(), q.data_ptr(), b, vp, vq, int(difference),
-                 eps_scale(p.dtype), area.data_ptr(), cent.data_ptr(),
+                 eps_scale(p.dtype), g, area.data_ptr(), cent.data_ptr(),
                  chord.data_ptr(), ncross.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"clip kernel launch failed: CUDA error {err}")

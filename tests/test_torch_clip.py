@@ -7,6 +7,10 @@
 * float32 at 1000 m scale: the same plain clip against the Pallas kernel in
   interpret mode, with the Pallas tolerances of test_clip_integral.py
   (area within 1e-5 max|area|, chord within 1e-2, n_cross exactly equal);
+* the invariance the CUDA kernel's compacted edge lists rest on: inserting
+  duplicate vertices mid-polygon, or widening the padding (V 16 -> 24 -> 64),
+  leaves area, centroid and chord equal within 1e-12 relative and n_cross
+  exactly equal, in the port and in the JAX package;
 * the dispatching wrapper (``kernels/clip.py``) on CPU tensors is the plain
   version.
 """
@@ -25,6 +29,7 @@ from subzero_tpu.geometry.clip_pallas import (
     difference_stats_pallas, overlap_stats_pallas,
 )
 from oracles import random_convex
+from test_torch_kernels import with_duplicates
 
 from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
 from subzero_tpu_torch.geometry.polygon import pad_polygon, pad_polygons
@@ -85,6 +90,13 @@ def batches():
         "vp16_vq8": random_batch(40, seed=4, vp=16, vq=8),
         "vp8_vq24": random_batch(40, seed=5, vp=8, vq=24),
     }
+
+
+def widen(poly, v_out):
+    """Rows of ``poly`` re-padded to ``v_out`` slots with vertex 0."""
+    out = np.repeat(poly[:, :1], v_out, axis=1)
+    out[:, :poly.shape[1]] = poly
+    return out
 
 
 def _close(jax_st, torch_st, atol_area, atol_chord):
@@ -153,3 +165,33 @@ def test_wrapper_uses_plain_version_on_cpu():
         kclip.overlap_stats(torch.from_numpy(p).float(), torch.from_numpy(q))
     with pytest.raises(ValueError):
         kclip.overlap_stats(torch.from_numpy(p)[:3], torch.from_numpy(q))
+
+
+@pytest.mark.parametrize("difference", [False, True])
+@pytest.mark.parametrize("how,v_out", [("pad", 24), ("pad", 64),
+                                       ("dup", 24), ("dup", 64)])
+def test_zero_length_edges_change_nothing(how, v_out, difference):
+    pc, qc = random_batch(30, seed=8)
+    pk, qk = concave_batch(30, seed=9)
+    p, q = np.concatenate([pc, pk]), np.concatenate([qc, qk])
+    if how == "pad":
+        pw, qw = widen(p, v_out), widen(q, v_out)
+    else:                  # duplicates inside, not only longer padding
+        pw = with_duplicates(p, v_out, 10 + v_out)
+        qw = with_duplicates(q, v_out, 20 + v_out)
+        assert (pw != widen(p, v_out)).any() and (qw != widen(q, v_out)).any()
+    base = clip_integral_bm(torch.from_numpy(p), torch.from_numpy(q),
+                            difference)
+    got = clip_integral_bm(torch.from_numpy(pw), torch.from_numpy(qw),
+                           difference)
+    jfn = difference_stats_int if difference else overlap_stats_int
+    want = jfn(jnp.asarray(pw), jnp.asarray(qw))
+    for other in (base, want):
+        for name in ("area", "centroid", "chord_p"):
+            a = getattr(got, name).numpy()
+            b = np.asarray(getattr(other, name))
+            scale = max(float(np.max(np.abs(b))), 1.0)
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-12 * scale,
+                                       err_msg=name)
+        np.testing.assert_array_equal(got.n_cross.numpy(),
+                                      np.asarray(other.n_cross))

@@ -39,6 +39,109 @@ def pairs(n, seed, vp=16, vq=16, scale=1000.0):
     return pad_polygons(ps, vp)[0], pad_polygons(qs, vq)[0]
 
 
+def with_duplicates(poly, v_out, seed):
+    """Rows of ``poly`` widened to ``v_out`` slots by repeating random slots
+    in place (mid-polygon duplicate vertices), padded with vertex 0."""
+    rng = np.random.default_rng(seed)
+    b, v, _ = poly.shape
+    out = np.repeat(poly[:, :1], v_out, axis=1)
+    for k in range(b):
+        reps = 1 + rng.multinomial(v_out - v, np.ones(v) / v)
+        row = np.repeat(poly[k], np.where(rng.random(v) < 0.5, reps, 1), 0)
+        out[k, :len(row)] = row
+    return out
+
+
+SQUARE = np.array([[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0], [-1.0, 1.0]])
+
+
+def degenerate_pairs(scale=1000.0):
+    """Identical, collinear, touching, nested, corner and disjoint squares
+    (the degenerate battery of test_torch_clip.py)."""
+    offsets = [SQUARE, SQUARE + [1.5, 0.0], SQUARE + [2.0, 0.0],
+               0.25 * SQUARE, SQUARE + [1.0, 1.0], SQUARE + [5.0, 0.0],
+               SQUARE + [2.0, 2.0], SQUARE + [0.0, 1.0]]
+    p = pad_polygons([scale * SQUARE] * len(offsets), 16)[0]
+    q = pad_polygons([scale * o for o in offsets], 16)[0]
+    return p, q
+
+
+def one_past_tile(vp, vq):
+    """The smallest B that fills one kernel tile and one more pair."""
+    return next(b for b in range(2, 10 ** 6)
+                if b == kclip.THREADS // kclip.lane_group(b, vp, vq) + 1)
+
+
+def card_case(name):
+    if name == "duplicates":
+        p, q = pairs(300, seed=21, vp=16, vq=16)
+        return with_duplicates(p, 24, 22), with_duplicates(q, 24, 23)
+    if name == "degenerate":
+        return degenerate_pairs()
+    if name == "b1":
+        return pairs(1, seed=8)                 # 10 crossings
+    b, vp, vq = {"vp64_vq8": (700, 64, 8), "vp8_vq64": (700, 8, 64),
+                 "triangles": (500, 3, 3),
+                 "one_past_tile": (one_past_tile(16, 16), 16, 16)}[name]
+    return pairs(b, seed=b + vp + 3 * vq, vp=vp, vq=vq)
+
+
+def test_lane_group_is_a_power_of_two_that_fits():
+    for b in (1, 2, 7, 13, 64, 129, 1000, 10240, 81920, 163840, 10 ** 7):
+        for vp in (1, 3, 4, 8, 16, 24, 64, 100, 300):
+            for vq in (1, 3, 8, 16, 64, 300):
+                g = kclip.lane_group(b, vp, vq)
+                assert g in (1, 2, 4, 8, 16, 32), (b, vp, vq, g)
+                assert kclip.tile_bytes(g, vp, vq, 8) <= kclip.SMEM_LIMIT
+    # few lanes at the quad lattice, more for small B or wide polygons
+    assert kclip.lane_group(81920, 16, 16) <= 4
+    assert kclip.lane_group(1, 16, 16) >= 8
+    assert kclip.lane_group(163840, 64, 64) >= 8
+    # a tile that cannot fit even at 32 lanes
+    assert kclip.tile_bytes(32, 1000, 1000, 8) > kclip.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("name", ["duplicates", "degenerate", "vp64_vq8",
+                                  "vp8_vq64", "b1", "one_past_tile",
+                                  "triangles"])
+def test_card_cases_are_valid_polygon_pairs(name):
+    """The card cases on the CPU: the plain version gives finite areas and
+    some overlap, and the widened (duplicate-vertex) pairs the same
+    statistics as the originals."""
+    p, q = card_case(name)
+    got = clip_integral_bm(torch.from_numpy(p), torch.from_numpy(q), False)
+    assert bool(torch.isfinite(got.area).all())
+    assert float(got.area.abs().max()) > 0
+    if name == "duplicates":
+        p0, q0 = pairs(300, seed=21, vp=16, vq=16)
+        want = clip_integral_bm(torch.from_numpy(p0), torch.from_numpy(q0),
+                                False)
+        scale = float(want.area.abs().max())
+        assert float((got.area - want.area).abs().max()) <= 1e-12 * scale
+        assert torch.equal(got.n_cross, want.n_cross)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,vp,vq", [(13, 16, 16), (4096, 16, 16),
+                                      (1000, 16, 8), (512, 64, 64)])
+def test_kernel_matches_plain_on_card(dtype, b, vp, vq):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    _hold_on_card(*pairs(b, seed=b + vp, vp=vp, vq=vq), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["duplicates", "degenerate", "vp64_vq8",
+                                  "vp8_vq64", "b1", "one_past_tile",
+                                  "triangles"])
+def test_kernel_matches_plain_on_card_edge_cases(dtype, name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    _hold_on_card(*card_case(name), dtype)
+
+
 def test_module_serves_cpu_without_building(monkeypatch):
     def no_build():
         raise AssertionError("the CPU path must not build the kernel")
@@ -60,14 +163,7 @@ def test_kernel_entry_refuses_cpu_tensors():
         kclip.clip_stats_cuda(torch.from_numpy(p), torch.from_numpy(q), False)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("b,vp,vq", [(13, 16, 16), (4096, 16, 16),
-                                      (1000, 16, 8), (512, 64, 64)])
-def test_kernel_matches_plain_on_card(dtype, b, vp, vq):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU")
-    p, q = pairs(b, seed=b + vp, vp=vp, vq=vq)
+def _hold_on_card(p, q, dtype):
     pt = torch.from_numpy(p).to("cuda", dtype)
     qt = torch.from_numpy(q).to("cuda", dtype)
     for difference in (False, True):
