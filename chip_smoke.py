@@ -31,10 +31,13 @@ prints no result):
    kernel's launch counter is zeroed before each run and must read one
    launch per periodic step and two per walled step.
 
-Earlier lines report build time, kernel and plain-version times with the
-bound and the kernel's share of it at each timed shape, floe-steps/s and
-per-phase CUDA-event times.  The line before last holds the card's name and power limit; before it, one JSON object with
-the kernel's record.  The last line is ``{"ok": true, "device": {...}}``.
+Earlier lines report build time; at each timed shape the kernel's time per
+wrapper call (host launch cost included, as the record's ``ms``), its card
+time alone, the wrapper's host time per call, the plain version's time,
+and the bound with the kernel's share of it; floe-steps/s and per-phase
+CUDA-event times.  The line before last holds the card's name and power
+limit; before it, one JSON object with the kernel's record.  The last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -155,10 +158,27 @@ def lattice_config(n_floes, lx, periodic, dtype, n_mc=256, window=100):
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, reps=20, warmup=3):
-    """Mean milliseconds per call of ``fn`` by CUDA events.  A spin kernel
-    of ~10 ms runs first, so the host queues all ``reps`` calls before the
-    card reaches them and the events time the card, not the host's launch
-    rate."""
+    """Mean milliseconds per call of ``fn`` by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def card_ms(fn, reps=20, warmup=3):
+    """(card milliseconds, host microseconds) per call of ``fn``.  A spin
+    kernel of ~10 ms runs first, so the host queues all ``reps`` calls
+    before the card reaches them: the CUDA events then time the card alone,
+    and the host clock around the loop times the calls' host work alone."""
     import torch
 
     for _ in range(warmup):
@@ -168,11 +188,13 @@ def cuda_ms(fn, reps=20, warmup=3):
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
+    h0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host = time.perf_counter() - h0
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return t0.elapsed_time(t1) / reps, host / reps * 1e6
 
 
 def real_edges(poly):
@@ -342,13 +364,19 @@ def phase_kernel_vs_plain():
 
 
 def time_kernel(name, a, b, diff, plain_on=None):
-    """Kernel and plain-version times at (a, b), with the bound and the
-    kernel's share of it; the plain version runs on the first ``plain_on``
-    pairs where its [Vp, Vq, B] temporaries would not fit at full B."""
+    """Kernel and plain-version times at (a, b) by ``cuda_ms``, with the
+    bound and the kernel's share of it; the plain version runs on the first
+    ``plain_on`` pairs where its [Vp, Vq, B] temporaries would not fit at
+    full B.  A second line gives the kernel's card time alone and the
+    wrapper's host time per call (``card_ms``)."""
     from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
     from subzero_tpu_torch.kernels import clip as kclip
 
-    ms = cuda_ms(lambda: kclip.clip_stats_cuda(a, b, diff))
+    def kernel():
+        kclip.clip_stats_cuda(a, b, diff)
+
+    ms = cuda_ms(kernel)
+    card, host_us = card_ms(kernel)
     n = plain_on or a.shape[0]
     plain = cuda_ms(lambda: clip_integral_bm(a[:n], b[:n], diff), reps=5)
     bound, by, nbytes, flops = clip_bound_ms(a, b)
@@ -359,6 +387,8 @@ def time_kernel(name, a, b, diff, plain_on=None):
         + f"  bound {bound:.4f} ms ({by}: {nbytes} B, {flops:.4g} flop)  "
         f"share of bound {bound / ms:.1%}  smem/block "
         f"{kclip.tile_bytes(g, a.shape[1], b.shape[1], a.element_size())} B")
+    log(f"[time] {name}: card alone {card:.4f} ms (share of bound "
+        f"{bound / card:.1%}), wrapper host {host_us:.1f} us per call")
     return ms, plain, bound, by
 
 

@@ -370,23 +370,18 @@ int launch_g(const T* p, const T* q, long long b, int vp, int vq,
              int* ncross, cudaStream_t stream) {
   auto kernel = clip_kernel<T, G>;
   const long long smem = tile_bytes(G, vp, vq, (int)sizeof(T));
-  // Per instance: the shared-memory size last configured and its occupancy
-  // (the step launches the same shapes every step).
-  static long long known_smem = -1;
-  static int per_sm = 0;
-  int dev = 0, sms = 0;
+  // Set up on every launch, for the current device: no state is kept
+  // between launches, devices or host threads.
+  int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && smem != known_smem) {
-    if (smem > 48 * 1024)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kThreads, smem);
-    known_smem = err == cudaSuccess ? smem : -1;
-  }
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long ntiles = (b + kThreads / G - 1) / (kThreads / G);

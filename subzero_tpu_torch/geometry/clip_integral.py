@@ -23,6 +23,8 @@ version.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .clip import OverlapStats
@@ -35,6 +37,7 @@ __all__ = [
 ]
 
 
+@functools.lru_cache(maxsize=None)
 def eps_scale(dtype: torch.dtype) -> float:
     """(machine eps of ``dtype``)^(2/3), rounded to ``dtype``: the per-pair
     nudge is ``max(max|coords|, 1) * eps_scale``."""

@@ -26,6 +26,7 @@ takes (the wrapper raises on shapes whose tile does not fit).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -153,6 +154,7 @@ def tile_bytes(g: int, vp: int, vq: int, itemsize: int) -> int:
             + 2 * bt * 4)
 
 
+@functools.lru_cache(maxsize=256)
 def lane_group(b: int, vp: int, vq: int) -> int:
     """Lanes per pair, G in {1, 2, 4, 8, 16, 32}, for B pairs of Vp x Vq
     slots.

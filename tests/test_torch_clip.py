@@ -29,11 +29,12 @@ from subzero_tpu.geometry.clip_pallas import (
     difference_stats_pallas, overlap_stats_pallas,
 )
 from oracles import random_convex
-from test_torch_kernels import with_duplicates
 
 from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
 from subzero_tpu_torch.geometry.polygon import pad_polygon, pad_polygons
 from subzero_tpu_torch.kernels import clip as kclip
+
+from chip_smoke import with_duplicates
 
 torch.set_num_threads(1)
 

@@ -18,6 +18,8 @@ from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
 from subzero_tpu_torch.geometry.polygon import pad_polygons
 from subzero_tpu_torch.kernels import clip as kclip
 
+from chip_smoke import degenerate_pairs, one_past_tile, with_duplicates
+
 torch.set_num_threads(1)
 
 
@@ -37,39 +39,6 @@ def pairs(n, seed, vp=16, vq=16, scale=1000.0):
     ps = [poly(vp, (0.0, 0.0)) for _ in range(n)]
     qs = [poly(vq, rng.uniform(-1.2, 1.2, 2)) for _ in range(n)]
     return pad_polygons(ps, vp)[0], pad_polygons(qs, vq)[0]
-
-
-def with_duplicates(poly, v_out, seed):
-    """Rows of ``poly`` widened to ``v_out`` slots by repeating random slots
-    in place (mid-polygon duplicate vertices), padded with vertex 0."""
-    rng = np.random.default_rng(seed)
-    b, v, _ = poly.shape
-    out = np.repeat(poly[:, :1], v_out, axis=1)
-    for k in range(b):
-        reps = 1 + rng.multinomial(v_out - v, np.ones(v) / v)
-        row = np.repeat(poly[k], np.where(rng.random(v) < 0.5, reps, 1), 0)
-        out[k, :len(row)] = row
-    return out
-
-
-SQUARE = np.array([[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0], [-1.0, 1.0]])
-
-
-def degenerate_pairs(scale=1000.0):
-    """Identical, collinear, touching, nested, corner and disjoint squares
-    (the degenerate battery of test_torch_clip.py)."""
-    offsets = [SQUARE, SQUARE + [1.5, 0.0], SQUARE + [2.0, 0.0],
-               0.25 * SQUARE, SQUARE + [1.0, 1.0], SQUARE + [5.0, 0.0],
-               SQUARE + [2.0, 2.0], SQUARE + [0.0, 1.0]]
-    p = pad_polygons([scale * SQUARE] * len(offsets), 16)[0]
-    q = pad_polygons([scale * o for o in offsets], 16)[0]
-    return p, q
-
-
-def one_past_tile(vp, vq):
-    """The smallest B that fills one kernel tile and one more pair."""
-    return next(b for b in range(2, 10 ** 6)
-                if b == kclip.THREADS // kclip.lane_group(b, vp, vq) + 1)
 
 
 def card_case(name):
