@@ -20,24 +20,43 @@ prints no result):
    relative).  Then time it at 4,096x64x64 and at the model's default
    capacity (163,840 pairs of 64 slots, 10-30 real vertices; checked on
    its first 16,384 pairs), and on the main path's own pairs (below).
-3. Run a walled 256-floe lattice for 20 steps in float64 with
-   ``device="cpu"`` (plain clip) and ``device="cuda"`` (kernel) from the
-   same numpy inputs: positions within 1e-6 m, velocities within 1e-9 m/s,
-   the same collision count every step.
-4. Drive the main path at full size in float32: the 10,240-floe dense quad
-   lattice (V=16, K=8, 256 Monte-Carlo points, stress window 100,
-   aggregate contacts, uniform 0.1 m/s ocean), periodic and walled, one
-   warm-up step then 30 timed steps each, through ``make_step_fn``.  The
-   kernel's launch counter is zeroed before each run and must read one
-   launch per periodic step and two per walled step.
+3. CPU against CUDA in float64, from the same numpy inputs, through
+   ``make_step_fn(device="cpu")`` (plain clip) and ``device="cuda"``
+   (kernel): a walled 256-quad lattice in aggregate mode for 20 steps; a
+   walled cluster of 144 concave stars with per-region contacts for 20
+   steps, then 10 steps each with the active-pair pool and with
+   ``normal_dir="reclip"`` + ``region_dl="edge_mean"``; a periodic 256-quad
+   lattice with the cell-list broad phase for 10 steps.  Positions within
+   1e-6 m, velocities within 1e-9 m/s, the same collision count,
+   region-pool demand and overflow flags every step; the star runs must
+   decompose regions and never overflow.
+4. Drive the main path at full size in float32 (V=16, K=8, 256 Monte-Carlo
+   points, stress window 100, uniform 0.1 m/s ocean), one warm-up step then
+   30 timed steps each, through ``make_step_fn``: the 10,240-floe dense quad
+   lattice in aggregate mode, periodic and walled; (a) the same under the
+   default ContactConfig (per-region contacts), periodic and walled; (b)
+   bench.py's 10,240-floe concave-star lattice, periodic, with the region
+   pool sized by a probe step as bench.py sizes it (it must never overflow
+   and must decompose regions), and the same stars in aggregate mode, for
+   the cost of the decomposition; (c) the quad lattice, periodic, with the
+   cell-list broad phase (cell 1.5 pitch, 8 floes a cell).  Before the
+   runs the kernel is held against the plain version (and timed) on the
+   quad lattice's first-step pairs and on the stars' active-pair pool
+   batch.  The kernel's launch counter is zeroed before each run and must
+   read one launch per periodic step and two per walled step.  Then
+   ``contact_forces`` and ``boundary_contact`` run per-region and with the
+   active-pair pool on run (b)'s end state under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host sync.
 
 Earlier lines report build time; at each timed shape the kernel's time per
 wrapper call (host launch cost included, as the record's ``ms``), its card
 time alone, the wrapper's host time per call, the plain version's time,
-and the bound with the kernel's share of it; floe-steps/s and per-phase
-CUDA-event times.  The line before last holds the card's name and power
-limit; before it, one JSON object with the kernel's record.  The last line
-is ``{"ok": true, "device": {...}}``.
+and the bound with the kernel's share of it; per run floe-steps/s,
+per-phase CUDA-event times, peak memory, the region-pool sizes and the
+largest region-pool demand.  The line before last holds the card's name
+and power limit; before it, one JSON object with the kernel's record, its
+``launches`` summed over the seven phase-4 runs.  The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -136,7 +155,35 @@ def lattice(n_floes, seed=0, pitch=4000.0):
     return polys, vel, lx
 
 
-def lattice_config(n_floes, lx, periodic, dtype, n_mc=256, window=100):
+def star_lattice(n_floes, seed=0, pitch=4000.0):
+    """bench.py's concave workload (``build_concave``): a ~sqrt(N) x
+    sqrt(N) lattice of interlocking concave stars, 5-8 arms (10-16
+    vertices), arm tips at 0.65 pitch, random velocities.  Nearly every
+    contact crosses four or more times, so the region decomposition runs."""
+    side = int(np.ceil(np.sqrt(n_floes)))
+    lx = side * pitch / 2
+    rng = np.random.default_rng(seed)
+    polys = []
+    for k in range(n_floes):
+        i, j = divmod(k, side)
+        cx, cy = -lx + (j + 0.5) * pitch, -lx + (i + 0.5) * pitch
+        nv = 2 * int(rng.integers(5, 9))
+        th = (np.linspace(0, 2 * np.pi, nv + 1)[:-1]
+              + rng.uniform(0, np.pi / nv))
+        r = 0.45 * pitch * (
+            1 + 0.45 * np.where(np.arange(nv) % 2 == 0, 1.0, -1.0)
+            + rng.uniform(-0.1, 0.1, nv))
+        polys.append(np.stack([cx + r * np.cos(th), cy + r * np.sin(th)],
+                              axis=1))
+    vel = rng.uniform(-0.1, 0.1, size=(n_floes, 2))
+    return polys, vel, lx
+
+
+def lattice_config(n_floes, lx, periodic, dtype, n_mc=256, window=100,
+                   contact=None, numerics=None, capacity=None):
+    """V=16, K=8 at ``n_floes``; ``contact`` / ``numerics`` / ``capacity``:
+    ContactConfig, NumericsConfig and CapacityConfig fields (default:
+    aggregate contacts)."""
     from subzero_tpu_torch.config import (
         CapacityConfig, ContactConfig, DomainConfig, NumericsConfig,
         ProcessConfig, SimConfig,
@@ -145,12 +192,25 @@ def lattice_config(n_floes, lx, periodic, dtype, n_mc=256, window=100):
     return SimConfig(
         capacity=CapacityConfig(max_floes=int(np.ceil(n_floes / 8)) * 8,
                                 max_verts=16, max_neighbors=8,
-                                n_mc_points=n_mc, stress_window=window),
-        numerics=NumericsConfig(dtype=dtype),
+                                n_mc_points=n_mc, stress_window=window,
+                                **(capacity or {})),
+        numerics=NumericsConfig(dtype=dtype, **(numerics or {})),
         domain=DomainConfig(lx=lx, ly=lx),
         processes=ProcessConfig(periodic=periodic),
-        contact=ContactConfig(per_region=False),
+        contact=ContactConfig(**({"per_region": False} if contact is None
+                                 else contact)),
     )
+
+
+def region_pool_slots(cfg):
+    """(floe-floe, wall) region-pool sizes of ``_blend_regions_compact``."""
+    import math
+
+    frac = cfg.contact.region_pair_frac
+    n = cfg.capacity.max_floes
+    p = n * cfg.capacity.max_neighbors
+    return (min(p, max(128, math.ceil(p * frac))),
+            min(n, max(128, math.ceil(n * frac))))
 
 
 # ---------------------------------------------------------------------------
@@ -444,7 +504,12 @@ def main_path_pairs(state, cfg):
             (vw - ci[:, None]).contiguous(), wall_q)
 
 
-def phase_step_parity():
+def lockstep(label, polys, vel, lx, cfg, steps, need_regions=False):
+    """``steps`` float64 steps of one configuration with ``device="cpu"``
+    (plain clip) and ``device="cuda"`` (kernel) from the same numpy inputs:
+    positions within 1e-6 m, velocities within 1e-9 m/s, and the same
+    collision count, region-pool demand and overflow flags every step; one
+    kernel launch per periodic step, two per walled step, on CUDA only."""
     import torch
 
     from subzero_tpu_torch.convert import state_to_numpy, state_from_numpy
@@ -453,9 +518,6 @@ def phase_step_parity():
     from subzero_tpu_torch.kernels import clip as kclip
     from subzero_tpu_torch.state import state_from_polygons
 
-    polys, vel, lx = lattice(256, seed=1)
-    cfg = lattice_config(256, lx, periodic=False, dtype="float64", n_mc=64,
-                         window=16)
     st0 = state_to_numpy(state_from_polygons(polys, 0.5, cfg,
                                              velocities=vel, device="cpu"))
     runs = {}
@@ -464,34 +526,78 @@ def phase_step_parity():
                              dtype=torch.float64, device=dev)
         step = make_step_fn(cfg, fc, MODULUS, device=dev)
         st = state_from_numpy(st0, device=dev, dtype=torch.float64)
-        traj, ncol, walls = [], [], 0
+        traj, counts, walls = [], [], 0
         kclip.clip_stats_cuda.launches = 0
-        for i in range(20):
+        for i in range(steps):
             st, aux = step(st, i)
             traj.append({k: getattr(st, k).cpu().numpy()
                          for k in ("x", "y", "u", "v", "ksi")})
-            ncol.append(int(aux.n_collisions))
+            counts.append(tuple(int(getattr(aux, k)) for k in (
+                "n_collisions", "region_pool_need", "region_overflow",
+                "pair_pool_need", "pair_pool_overflow")))
             walls += int(aux.boundary_contact.sum())
-        runs[dev] = (traj, ncol, walls, kclip.clip_stats_cuda.launches)
-    (tc, nc, wc, lc), (tg, ng, wg, lg) = runs["cpu"], runs["cuda"]
-    if lc != 0 or lg != 40:
-        raise AssertionError(f"kernel launches cpu={lc} cuda={lg}, "
-                             f"expected 0 and 40")
+        runs[dev] = (traj, counts, walls, kclip.clip_stats_cuda.launches)
+    (tc, cc, wc, lc), (tg, cg, wg, lg) = runs["cpu"], runs["cuda"]
+    periodic = cfg.processes.periodic
+    want = steps * (1 if periodic else 2)
+    if lc != 0 or lg != want:
+        raise AssertionError(f"{label}: kernel launches cpu={lc} cuda={lg}, "
+                             f"expected 0 and {want}")
     dpos = max(np.max(np.abs(a[k] - b[k])) for a, b in zip(tc, tg)
                for k in ("x", "y"))
     dvel = max(np.max(np.abs(a[k] - b[k])) for a, b in zip(tc, tg)
                for k in ("u", "v", "ksi"))
-    log(f"[step f64] 256 floes walled, 20 steps: max|d pos| {dpos:.3e} m, "
-        f"max|d vel| {dvel:.3e} m/s, collisions/step cpu {nc} cuda {ng}, "
-        f"wall contacts {wc}/{wg}")
-    if nc != ng or dpos > 1e-6 or dvel > 1e-9 or sum(nc) == 0 or wg == 0:
-        raise AssertionError("CPU and CUDA steps disagree (or never "
-                             "collided)")
+    ncol = [c[0] for c in cg]
+    need = [c[1] for c in cg]
+    log(f"[step f64] {label}, {steps} steps: max|d pos| {dpos:.3e} m, "
+        f"max|d vel| {dvel:.3e} m/s, collisions/step {ncol} (equal: "
+        f"{cc == cg}), region-pool demand/step {need}, wall contacts "
+        f"{wc}/{wg}")
+    if cc != cg or dpos > 1e-6 or dvel > 1e-9 or sum(ncol) == 0:
+        raise AssertionError(f"{label}: CPU and CUDA steps disagree (or "
+                             f"never collided)")
+    if not periodic and wg == 0:
+        raise AssertionError(f"{label}: no floe touched a wall")
+    if need_regions and (max(need) == 0 or any(c[2] or c[4] for c in cg)):
+        raise AssertionError(f"{label}: the region decomposition never ran, "
+                             f"or a pool overflowed")
+
+
+def phase_step_parity():
+    polys, vel, lx = lattice(256, seed=1)
+    lockstep("256 quads walled, aggregate", polys, vel, lx,
+             lattice_config(256, lx, periodic=False, dtype="float64",
+                            n_mc=64, window=16), 20)
+    # a walled cluster of 144 concave stars: the star tips cross the walls,
+    # so both the floe-floe and the wall region pools run
+    polys, vel, lx = star_lattice(144, seed=2)
+    runs = [
+        ("144 stars walled, per-region", dict(region_pair_frac=0.25), 20),
+        ("144 stars walled, pair pool + per-region",
+         dict(region_pair_frac=0.25, pair_pool=True, pair_pool_frac=1.0), 10),
+        ("144 stars walled, reclip + edge_mean",
+         dict(region_pair_frac=0.25, normal_dir="reclip",
+              region_dl="edge_mean"), 10),
+    ]
+    for label, contact, steps in runs:
+        lockstep(label, polys, vel, lx,
+                 lattice_config(144, lx, periodic=False, dtype="float64",
+                                n_mc=64, window=16, contact=contact),
+                 steps, need_regions=True)
+    polys, vel, lx = lattice(256, seed=3)
+    lockstep("256 quads periodic, cell-list broad phase", polys, vel, lx,
+             lattice_config(256, lx, periodic=True, dtype="float64", n_mc=64,
+                            window=16, contact={},
+                            numerics=dict(broadphase="cells",
+                                          cell_size=1.5 * 4000.0),
+                            capacity=dict(max_per_cell=8)), 10)
 
 
 def run_main_path(state, cfg, forcing):
     """Warm-up step + STEPS timed steps; returns (launches, rate, phase
-    ms per step, final state, aux)."""
+    ms per step, final state, aux, timed-step maxima).  The maxima of the
+    pool demands and the OR of the overflow flags over the timed steps are
+    gathered on the device and read after the timing."""
     import torch
 
     from subzero_tpu_torch.dynamics.step import make_step_fn
@@ -505,13 +611,19 @@ def run_main_path(state, cfg, forcing):
         ev.record()
         marks.append((name, ev))
 
+    keys = ("region_pool_need", "region_overflow", "pair_pool_need",
+            "pair_pool_overflow", "nbr_overflow")
     kclip.clip_stats_cuda.launches = 0
     s, aux = step(state, 0)
     torch.cuda.synchronize()
     marks.clear()
+    most = None
     t0 = time.perf_counter()
     for i in range(1, STEPS + 1):
         s, aux = step(s, i, timer=timer)
+        vals = [getattr(aux, k).to(torch.int32) for k in keys]
+        most = vals if most is None else [torch.maximum(a, b)
+                                          for a, b in zip(most, vals)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kclip.clip_stats_cuda.launches
@@ -519,28 +631,112 @@ def run_main_path(state, cfg, forcing):
     for (name, a), (_, b) in zip(marks, marks[1:]):
         if name != "end":
             phase[name] = phase.get(name, 0.0) + a.elapsed_time(b) / STEPS
-    return launches, N_FLOES * STEPS / wall, phase, s, aux
+    most = {k: int(v) for k, v in zip(keys, most)}
+    return launches, state.n * STEPS / wall, phase, s, aux, most
+
+
+def captured_clip_inputs(call):
+    """The (p, q) of every overlap clip that ``call()`` makes through the
+    contact module (the active-pair pool's gathered batch, for one)."""
+    from subzero_tpu_torch.dynamics import contact as tcontact
+
+    saved = tcontact.overlap_stats
+    got = []
+
+    def overlap(p, q):
+        got.append((p.contiguous(), q.contiguous()))
+        return saved(p, q)
+
+    tcontact.overlap_stats = overlap
+    try:
+        call()
+    finally:
+        tcontact.overlap_stats = saved
+    return got
+
+
+def main_path_runs():
+    """The phase-4 runs, ``[(label, state, forcing, cfg)]``, and the star
+    lattice's ``(state, per-region cfg, active-pair pool cfg, lx)``.  The
+    stars' pools are sized by a probe step at generous fractions, as
+    bench.py's measure_concave sizes the region pool: 1.25 x demand + 1,
+    rounded up to a multiple of 128."""
+    import torch
+
+    from subzero_tpu_torch.dynamics.step import make_step_fn
+    from subzero_tpu_torch.forcing import uniform_forcing
+    from subzero_tpu_torch.state import state_from_polygons
+
+    t0 = time.perf_counter()
+    polys, vel, lx = lattice(N_FLOES)
+    quads = state_from_polygons(polys, 0.5, lattice_config(
+        N_FLOES, lx, periodic=True, dtype="float32"), velocities=vel)
+    forcing = uniform_forcing(lx=4 * lx, dx=lx / 8, uo=0.1)
+    torch.cuda.synchronize()
+    log(f"[main] built {N_FLOES} quads in {time.perf_counter() - t0:.3f} s")
+
+    t0 = time.perf_counter()
+    spolys, svel, slx = star_lattice(N_FLOES)
+    p_slots = N_FLOES * 8
+
+    def star_config(**contact):
+        return lattice_config(N_FLOES, slx, periodic=True, dtype="float32",
+                              contact=contact)
+
+    stars = state_from_polygons(spolys, 0.5, star_config(), velocities=svel)
+    sforcing = uniform_forcing(lx=4 * slx, dx=slx / 8, uo=0.1)
+    _, aux = make_step_fn(star_config(region_pair_frac=0.25, pair_pool=True,
+                                      pair_pool_frac=1.0),
+                          sforcing, MODULUS)(stars, 0)
+    need, p_need = int(aux.region_pool_need), int(aux.pair_pool_need)
+    slots, p_pool = (max(128, -(-int(d * 1.25 + 1) // 128) * 128)
+                     for d in (need, p_need))
+    cfg_s = star_config(region_pair_frac=slots / p_slots)
+    cfg_pool = star_config(region_pair_frac=slots / p_slots, pair_pool=True,
+                           pair_pool_frac=p_pool / p_slots)
+    torch.cuda.synchronize()
+    log(f"[main] built {N_FLOES} concave stars in "
+        f"{time.perf_counter() - t0:.3f} s; probe step: region-pool demand "
+        f"{need} -> {slots} slots, active-pair demand {p_need} -> {p_pool} "
+        f"slots")
+
+    def quad_config(periodic, **kw):
+        return lattice_config(N_FLOES, lx, periodic=periodic,
+                              dtype="float32", **kw)
+
+    runs = [
+        ("aggregate periodic", quads, forcing, quad_config(True)),
+        ("aggregate walled", quads, forcing, quad_config(False)),
+        ("(a) default periodic", quads, forcing,
+         quad_config(True, contact={})),
+        ("(a) default walled", quads, forcing,
+         quad_config(False, contact={})),
+        ("(b) stars periodic", stars, sforcing, cfg_s),
+        ("stars periodic, aggregate", stars, sforcing, star_config(
+            per_region=False)),
+        ("(c) cells periodic", quads, forcing, quad_config(
+            True, contact={},
+            numerics=dict(broadphase="cells", cell_size=1.5 * 4000.0),
+            capacity=dict(max_per_cell=8))),
+    ]
+    return runs, (stars, cfg_s, cfg_pool, slx)
 
 
 def phase_main_path(kernel_record):
     import torch
 
-    from subzero_tpu_torch.forcing import uniform_forcing
+    from subzero_tpu_torch.dynamics import contact as tcontact
+    from subzero_tpu_torch.dynamics.broadphase import neighbor_candidates
+    from subzero_tpu_torch.dynamics.step import domain_polygon
     from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
     from subzero_tpu_torch.kernels import clip as kclip
-    from subzero_tpu_torch.state import state_from_polygons
 
-    t0 = time.perf_counter()
-    polys, vel, lx = lattice(N_FLOES)
-    cfg_p = lattice_config(N_FLOES, lx, periodic=True, dtype="float32")
-    state = state_from_polygons(polys, 0.5, cfg_p, velocities=vel)
-    forcing = uniform_forcing(lx=4 * lx, dx=lx / 8, uo=0.1)
-    torch.cuda.synchronize()
-    log(f"[main] built {N_FLOES} floes in {time.perf_counter() - t0:.3f} s")
+    runs, (stars, cfg_s, cfg_pool, slx) = main_path_runs()
 
-    # The kernel at the main path's own inputs (first step's pairs), against
-    # the plain version on the same tensors, and timed.
-    p, q, fw, wq = main_path_pairs(state, cfg_p)
+    # The kernel at the main path's own inputs (the quads' first-step
+    # pairs), against the plain version on the same tensors, and timed.
+    _, quads, _, cfg_p = runs[0]
+    p, q, fw, wq = main_path_pairs(quads, cfg_p)
     for name, (a, b, diff) in (("overlap", (p, q, False)),
                                ("wall difference", (fw, wq, True))):
         got = kclip.clip_stats_cuda(a, b, diff)
@@ -553,20 +749,42 @@ def phase_main_path(kernel_record):
             kernel_record.update(max_abs_err=da, ms=ms, plain_ms=plain,
                                  bound_ms=bound, bound_by=by)
     del p, q, fw, wq
+
+    # The kernel at the active-pair pool's gathered batch of the stars'
+    # first step, against the plain version, and timed.
+    vw = stars.verts_world()
+    nbr = neighbor_candidates(stars.x, stars.y, stars.rmax, stars.alive,
+                              8, True, slx, slx)
+    dom = domain_polygon(cfg_pool, device=stars.device)
+    (a, b), = captured_clip_inputs(lambda: tcontact.contact_forces(
+        vw, stars.x, stars.y, stars.u, stars.v, stars.ksi, stars.h,
+        stars.area, nbr, MODULUS, cfg_pool, nv=stars.nv, domain_verts=dom))
+    got = kclip.clip_stats_cuda(a, b, False)
+    want = clip_integral_bm(a, b, False)
+    da, dc = compare(got, want, torch.float32, "pair-pool batch")
+    log(f"[kernel] pair-pool batch B={a.shape[0]} (stars): max|d area| "
+        f"{da:.3e}  max|d chord| {dc:.3e}  n_cross equal")
+    time_kernel("pair-pool batch", a, b, False)
+    kernel_record["max_abs_err"] = max(kernel_record["max_abs_err"], da)
+    del a, b, got, want, vw, nbr
     torch.cuda.empty_cache()
 
     total = 0
-    for periodic in (True, False):
-        cfg = lattice_config(N_FLOES, lx, periodic=periodic, dtype="float32")
-        label = "periodic" if periodic else "walled"
+    for label, st0, fc, cfg in runs:
+        periodic = cfg.processes.periodic
         torch.cuda.reset_peak_memory_stats()
-        launches, rate, phase, s, aux = run_main_path(state, cfg, forcing)
+        launches, rate, phase, s, aux, most = run_main_path(st0, cfg, fc)
         want = (STEPS + 1) * (1 if periodic else 2)
+        pools = (region_pool_slots(cfg) if cfg.contact.per_region
+                 else "off")
         log(f"[main] {label}: {rate:.1f} floe-steps/s over {STEPS} steps; "
             f"per step (CUDA events, ms): "
             + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
             + f"; clip launches {launches} (expected {want}); "
-            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB; region pool slots (floe, wall) {pools}, "
+            f"max region_pool_need {most['region_pool_need']}, "
+            f"region_overflow {bool(most['region_overflow'])}")
         if launches != want:
             raise AssertionError(f"{label}: {launches} clip launches, "
                                  f"expected {want}")
@@ -578,11 +796,55 @@ def phase_main_path(kernel_record):
         n_alive = int(s.alive.sum())
         n_col = int(aux.n_collisions)
         log(f"[main] {label}: alive {n_alive}, collisions last step "
-            f"{n_col}, broad-phase overflow {bool(aux.nbr_overflow)}")
+            f"{n_col}, broad-phase overflow {bool(most['nbr_overflow'])}")
         if n_col == 0 or n_alive < N_FLOES * 0.9:
             raise AssertionError(f"{label}: implausible end state")
+        if label.startswith("(b)"):
+            if most["region_overflow"] or most["region_pool_need"] == 0:
+                raise AssertionError(f"{label}: the region pool overflowed "
+                                     f"or never ran (aggregate fallback)")
+            stars_end = s
         total += launches
     kernel_record["launches"] = total
+    phase_sync_check(stars_end, cfg_s, cfg_pool, slx)
+
+
+def phase_sync_check(state, cfg_region, cfg_pool, lx):
+    """contact_forces and boundary_contact, per-region and with the
+    active-pair pool, on the star run's end state, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync raises."""
+    import torch
+
+    from subzero_tpu_torch.dynamics import contact as tcontact
+    from subzero_tpu_torch.dynamics.broadphase import neighbor_candidates
+    from subzero_tpu_torch.dynamics.step import domain_polygon
+
+    vw = state.verts_world()
+    nbr = neighbor_candidates(state.x, state.y, state.rmax, state.alive,
+                              8, True, lx, lx)
+    dom = domain_polygon(cfg_region, device=state.device)
+
+    def calls(cfg):
+        pc = tcontact.contact_forces(
+            vw, state.x, state.y, state.u, state.v, state.ksi, state.h,
+            state.area, nbr, MODULUS, cfg, nv=state.nv, domain_verts=dom)
+        bc = tcontact.boundary_contact(
+            vw, state.x, state.y, state.u, state.v, state.ksi, state.h,
+            state.area, state.alive, dom, MODULUS, cfg, nv=state.nv)
+        return pc, bc
+
+    for name, cfg in (("per-region", cfg_region), ("pair pool", cfg_pool)):
+        calls(cfg)                       # first use: allocator, lazy init
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pc, bc = calls(cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        log(f"[sync] contact_forces + boundary_contact, {name}: no host "
+            f"sync (region need {int(pc.region_need)} + "
+            f"{int(bc.region_need)}, pair-pool need "
+            f"{int(pc.pair_pool_need)})")
 
 
 def main() -> int:

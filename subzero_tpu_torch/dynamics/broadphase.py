@@ -1,12 +1,13 @@
 """Broad-phase contact detection: bounding-circle candidate pairs.
 
-Port of the dense ("n2") path of ``subzero_tpu/dynamics/broadphase.py``: the
-reference's O(N^2) test ``dist(centroids) < rmax_i + rmax_j``
-(``floe_interactions_all.m:101-119``) as one masked [N, N] tensor op, then a
-top-K extraction into a fixed-degree [N, K] neighbour table.  Periodicity by
-the minimum-image convention: each candidate carries the image shift that
-brings floe j closest to floe i.  The cell-list broad phase is not ported
-yet (ROADMAP A3c).
+Port of ``subzero_tpu/dynamics/broadphase.py``: the reference's O(N^2) test
+``dist(centroids) < rmax_i + rmax_j`` (``floe_interactions_all.m:101-119``)
+as one masked [N, N] tensor op, then a top-K extraction into a
+fixed-degree [N, K] neighbour table.  Periodicity by the minimum-image
+convention: each candidate carries the image shift that brings floe j
+closest to floe i.  ``neighbor_candidates_cells`` is the cell-list broad
+phase: the same table from the floes of each floe's 3x3 cell
+neighbourhood, O(N * 9 * cell_cap) instead of O(N^2).
 """
 
 from __future__ import annotations
@@ -117,4 +118,101 @@ def neighbor_candidates(
         shy = torch.zeros(idx.shape, dtype=x.dtype, device=dev)
     shift = torch.stack([shx, shy], dim=-1)
     return NeighborTable(idx=idx, valid=valid, shift=shift,
+                         overflow=overflow, demand=demand)
+
+
+def neighbor_candidates_cells(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    rmax: torch.Tensor,
+    alive: torch.Tensor,
+    k_max: int,
+    periodic: bool,
+    lx: float,
+    ly: float,
+    cell_size: float,
+    cell_cap: int,
+    n_skip_rows: int = 0,
+) -> NeighborTable:
+    """Cell-list broad phase: the table of ``neighbor_candidates`` from the
+    floes of each floe's 3x3 cell neighbourhood.
+
+    ``cell_size`` must be >= 2 * max(rmax) so that every bounding-circle
+    candidate lies in that neighbourhood; ``cell_cap`` bounds the floes read
+    per cell (a fuller cell sets ``overflow``).  The candidate order (cells
+    row by row, floes by slot within a cell, from a stable sort) is the JAX
+    function's, so distance ties resolve identically.
+    """
+    n = x.shape[0]
+    dev = x.device
+    # integer cell grid covering [-lx, lx] x [-ly, ly]
+    ncx = max(int(2 * lx / cell_size), 1)
+    ncy = max(int(2 * ly / cell_size), 1)
+    csx = 2 * lx / ncx
+    csy = 2 * ly / ncy
+    ix = torch.clamp(((x + lx) / csx).to(torch.int32), 0, ncx - 1).long()
+    iy = torch.clamp(((y + ly) / csy).to(torch.int32), 0, ncy - 1).long()
+    # dead floes go to a sentinel cell
+    cid = torch.where(alive, iy * ncx + ix, ncx * ncy)
+
+    order = torch.argsort(cid, stable=True)
+    cid_sorted = cid[order]
+
+    # per-cell occupancy overflow check (index_add_ rather than bincount,
+    # which reads its input's maximum back to the host on CUDA)
+    counts = torch.zeros((ncx * ncy + 1,), dtype=torch.long,
+                         device=dev).index_add_(0, cid, torch.ones_like(cid))
+    overflow_cells = torch.any(counts[:-1] > cell_cap)
+
+    # 3x3 neighbourhood, dy outer and dx inner (wrapped when periodic,
+    # clamped otherwise)
+    off = torch.arange(9, device=dev)
+    nx_ = ix[:, None] + (off % 3 - 1)[None]                 # [N, 9]
+    ny_ = iy[:, None] + (off // 3 - 1)[None]
+    if periodic:
+        nx_ = torch.remainder(nx_, ncx)
+        ny_ = torch.remainder(ny_, ncy)
+        cell_ok = torch.ones(nx_.shape, dtype=torch.bool, device=dev)
+    else:
+        cell_ok = (nx_ >= 0) & (nx_ < ncx) & (ny_ >= 0) & (ny_ < ncy)
+        nx_ = torch.clamp(nx_, 0, ncx - 1)
+        ny_ = torch.clamp(ny_, 0, ncy - 1)
+    ncell = (ny_ * ncx + nx_).reshape(-1)                   # [N*9]
+
+    start = torch.searchsorted(cid_sorted, ncell, side="left")
+    slots = torch.clamp(start[:, None] + torch.arange(cell_cap, device=dev),
+                        0, n - 1)                           # [N*9, cap]
+    cand = order[slots].reshape(n, 9 * cell_cap)
+    cand_ok = ((cid_sorted[slots] == ncell[:, None])
+               & cell_ok.reshape(-1)[:, None]).reshape(n, 9 * cell_cap)
+
+    # circle test on the gathered candidates
+    dx = x[:, None] - x[cand]
+    dy = y[:, None] - y[cand]
+    if periodic:
+        sx = -2.0 * lx * torch.round(dx / (2.0 * lx))
+        sy = -2.0 * ly * torch.round(dy / (2.0 * ly))
+        dx = dx + sx
+        dy = dy + sy
+    else:
+        sx = torch.zeros_like(dx)
+        sy = torch.zeros_like(dy)
+    r2 = dx * dx + dy * dy
+    rsum = rmax[:, None] + rmax[cand]
+    self_idx = torch.arange(n, device=dev)[:, None]
+    ok = (cand_ok & (r2 < rsum * rsum) & alive[:, None] & alive[cand]
+          & (cand != self_idx))
+    if n_skip_rows:
+        ok[:n_skip_rows] = False
+
+    key = torch.where(ok, -r2, torch.full((), float("-inf"), dtype=r2.dtype,
+                                          device=dev))
+    kidx, valid = _top_k_argmax(key, k_max)                 # [N, K]
+    kidx = kidx.long()
+    demand = torch.max(torch.sum(ok, dim=1)).to(torch.int32)
+    overflow = overflow_cells | (demand > k_max)
+    idx = torch.where(valid, torch.gather(cand, 1, kidx), self_idx)
+    shift = torch.stack([-torch.gather(sx, 1, kidx),
+                         -torch.gather(sy, 1, kidx)], dim=-1)
+    return NeighborTable(idx=idx.to(torch.int32), valid=valid, shift=shift,
                          overflow=overflow, demand=demand)

@@ -21,7 +21,7 @@ from ..device import resolve_device
 from ..forcing import Forcing
 from ..geometry.polygon import pad_polygon
 from ..state import FloeState, torch_dtype
-from .broadphase import neighbor_candidates
+from .broadphase import neighbor_candidates, neighbor_candidates_cells
 from .contact import (
     BoundaryContact, PairContacts, boundary_contact, check_supported,
     contact_forces,
@@ -51,13 +51,12 @@ class StepAux(NamedTuple):
     pair_fy: torch.Tensor          # [N, K]
     pair_overlap: torch.Tensor     # [N, K] overlap area
     boundary_contact: torch.Tensor  # [N] floe touches the domain boundary
-    # Pool counters of the per-region and active-pair modes, which this port
-    # does not run yet: always False / 0, as the JAX step leaves them when
-    # those modes are off.
-    region_overflow: torch.Tensor
-    region_pool_need: torch.Tensor
-    pair_pool_overflow: torch.Tensor
-    pair_pool_need: torch.Tensor
+    region_overflow: torch.Tensor  # [] >=4-crossing contacts exceeded the
+                                   # per-region pool (aggregate fallback)
+    region_pool_need: torch.Tensor  # [] int32 >=4-crossing contact slots
+    pair_pool_overflow: torch.Tensor  # [] bbox-active pairs exceeded the
+                                      # active-pair pool (contacts zeroed)
+    pair_pool_need: torch.Tensor   # [] int32 bbox-active pair slots
 
 
 def domain_polygon(cfg: SimConfig, v_cap: int = 8, device=None) -> torch.Tensor:
@@ -100,12 +99,29 @@ def physics_step(
     verts_world = state.verts_world()
 
     # ---- broad phase ------------------------------------------------------
-    nbr = neighbor_candidates(
-        state.x, state.y, state.rmax, state.alive,
-        cfg.capacity.max_neighbors, periodic,
-        cfg.domain.lx, cfg.domain.ly,
-        n_skip_rows=cfg.n_boundary,
+    # The JAX step's rule: the cell list only on a grid of >= 3 cells a
+    # side, the dense test otherwise.
+    num = cfg.numerics
+    use_cells = (
+        num.broadphase == "cells" and num.cell_size > 0
+        and int(2 * cfg.domain.lx / num.cell_size) >= 3
+        and int(2 * cfg.domain.ly / num.cell_size) >= 3
     )
+    if use_cells:
+        nbr = neighbor_candidates_cells(
+            state.x, state.y, state.rmax, state.alive,
+            cfg.capacity.max_neighbors, periodic,
+            cfg.domain.lx, cfg.domain.ly,
+            num.cell_size, cfg.capacity.max_per_cell,
+            n_skip_rows=cfg.n_boundary,
+        )
+    else:
+        nbr = neighbor_candidates(
+            state.x, state.y, state.rmax, state.alive,
+            cfg.capacity.max_neighbors, periodic,
+            cfg.domain.lx, cfg.domain.ly,
+            n_skip_rows=cfg.n_boundary,
+        )
 
     # ---- narrow phase: floe-floe ------------------------------------------
     mark("contact")
@@ -248,9 +264,10 @@ def make_step_fn(cfg: SimConfig, forcing: Forcing, modulus: float,
     """Build ``step(state, step_idx: int) -> (state, aux)`` on ``device``.
 
     ``device=None`` means CUDA and raises if CUDA is absent; pass
-    ``device="cpu"`` for the plain PyTorch path.  Options this port lacks
-    raise NotImplementedError here.  The forcing grids and the domain
-    polygon are moved to the device once.
+    ``device="cpu"`` for the plain PyTorch path.  Every contact and
+    broad-phase option of the JAX step runs, except
+    ``contact_impl="xla"``, which raises NotImplementedError here.  The
+    forcing grids and the domain polygon are moved to the device once.
     """
     check_supported(cfg)
     dev = resolve_device(device)

@@ -9,6 +9,7 @@ from .polygon import (
 )
 from .clip import OverlapStats
 from .clip_integral import difference_stats_int, overlap_stats_int
+from .regions import RegionStats, region_stats, reverse_polygons
 
 __all__ = [
     "pad_polygon",
@@ -21,4 +22,7 @@ __all__ = [
     "OverlapStats",
     "difference_stats_int",
     "overlap_stats_int",
+    "RegionStats",
+    "region_stats",
+    "reverse_polygons",
 ]

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from subzero_tpu.dynamics.broadphase import neighbor_candidates
+from subzero_tpu.dynamics.broadphase import (
+    neighbor_candidates, neighbor_candidates_cells,
+)
 from subzero_tpu.dynamics.contact import boundary_contact, contact_forces
 from subzero_tpu.dynamics.step import domain_polygon
 from subzero_tpu.dynamics.trajectory import trajectory_update
@@ -23,7 +25,7 @@ from subzero_tpu_torch.convert import (
 from subzero_tpu_torch.dynamics import broadphase as tbp
 from subzero_tpu_torch.dynamics import contact as tcontact
 from subzero_tpu_torch.dynamics import trajectory as ttraj
-from test_torch_step import configs, lattice, to_numpy
+from test_torch_step import configs, lattice, star_lattice, to_numpy
 
 torch.set_num_threads(1)
 
@@ -184,3 +186,166 @@ def test_trajectory_update_with_clamps(do_int):
     assert np.count_nonzero(capped & np.asarray(want.alive)) >= 3
     assert np.any(np.abs(np.asarray(want.ksi)) == jcfg.clamps.max_spin)
     assert not bool(want.alive[5])
+
+
+# ---------------------------------------------------------------------------
+# per-region contacts and the active-pair pool
+# ---------------------------------------------------------------------------
+
+# (ContactConfig fields, star radius factor, expected flags).  Radius 0.45
+# is bench.py's concave lattice: 64 stars, P = 512 pair slots, a demand of
+# 30 >= 4-crossing slots (the default 128-slot pool fits) and 264 valid
+# pairs.  Radius 0.5 interlocks deeper: a demand of 142 overflows the
+# 128-slot floor, and all 512 slots are bbox-active, past the pair pool's
+# 256-slot floor.
+REGION_CASES = {
+    "default_pool": ({}, 0.45, dict(region_overflow=False)),
+    "region_overflow": ({}, 0.5, dict(region_overflow=True)),
+    "pair_pool": (dict(pair_pool=True, pair_pool_frac=1.0), 0.45,
+                  dict(region_overflow=False, pair_pool_overflow=False)),
+    "pair_pool_overflow": (dict(pair_pool=True), 0.5,
+                           dict(pair_pool_overflow=True)),
+    "pair_pool_aggregate": (dict(pair_pool=True, pair_pool_frac=1.0,
+                                 per_region=False), 0.45,
+                            dict(pair_pool_overflow=False)),
+    "edge_mean": (dict(region_dl="edge_mean"), 0.45,
+                  dict(region_overflow=False)),
+    "reclip": (dict(normal_dir="reclip"), 0.45, dict(region_overflow=False)),
+}
+
+
+
+def _assert_fields_match(got, want, tol):
+    """Flags and counters identical, float fields within ``tol`` of their
+    scale.  The contact point of a pair that carries no force is the
+    centroid of an overlap the cull dropped, often a sliver (0.2 m² in the
+    deep-interlock lattice), where the aggregate clip's moment / area
+    division leaves 3e-12 relative: there it is held to the 1e-9 of
+    test_contact_forces_match."""
+    force = np.asarray(want.fx != 0) | np.asarray(want.fy != 0)
+    for f in want._fields:
+        w = np.asarray(getattr(want, f))
+        g = getattr(got, f).numpy()
+        if w.dtype.kind in "bi":
+            np.testing.assert_array_equal(g, w, err_msg=f)
+            continue
+        scale = max(1.0, float(np.max(np.abs(w))))
+        if f in ("px", "py"):
+            np.testing.assert_allclose(g[force], w[force], rtol=0,
+                                       atol=tol * scale, err_msg=f)
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-9 * scale,
+                                       err_msg=f)
+            continue
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol * scale,
+                                   err_msg=f)
+
+
+@pytest.mark.parametrize("case", sorted(REGION_CASES))
+def test_region_contacts_match(case):
+    contact, radius, flags = REGION_CASES[case]
+    polys, vel, lx = star_lattice(8, seed=0, radius=radius)
+    jcfg, pcfg = configs(64, lx, True, contact=contact)
+    js = state_from_polygons(polys, 0.5, jcfg, velocities=vel)
+    ts = state_from_numpy(to_numpy(js), device="cpu")
+    nbr = neighbor_candidates(js.x, js.y, js.rmax, js.alive, 8, True, lx, lx)
+    dom = domain_polygon(jcfg)
+    vw = js.verts_world()
+    # (the JAX functions run eagerly: under jit XLA reorders the region
+    # sums, and a sliver region moves its pair's contact point by 3e-12
+    # relative)
+    want = contact_forces(vw, js.x, js.y, js.u, js.v, js.ksi, js.h, js.area,
+                          nbr, MODULUS, jcfg, nv=js.nv, domain_verts=dom)
+    got = tcontact.contact_forces(
+        ts.verts_world(), ts.x, ts.y, ts.u, ts.v, ts.ksi, ts.h, ts.area,
+        _nbr_to_torch(nbr), MODULUS, pcfg, nv=ts.nv, domain_verts=_t(dom))
+    _assert_fields_match(got, want, 1e-12)
+    for f, v in flags.items():
+        assert bool(getattr(got, f)) is v, f
+    if jcfg.contact.per_region and not flags.get("pair_pool_overflow"):
+        assert int(got.region_need) > 0
+    if jcfg.contact.pair_pool:
+        assert int(got.pair_pool_need) > 0
+    assert np.count_nonzero(np.asarray(want.fx)) > 50 or \
+        flags.get("pair_pool_overflow")
+
+    # the edge stars stick out of the domain: multi-region differences
+    wb = boundary_contact(vw, js.x, js.y, js.u, js.v, js.ksi, js.h, js.area,
+                          js.alive, dom, MODULUS, jcfg, nv=js.nv)
+    gb = tcontact.boundary_contact(
+        ts.verts_world(), ts.x, ts.y, ts.u, ts.v, ts.ksi, ts.h, ts.area,
+        ts.alive, _t(dom), MODULUS, pcfg, nv=ts.nv)
+    _assert_fields_match(gb, wb, 1e-12)
+    assert np.count_nonzero(np.asarray(wb.fx)) > 0
+    if jcfg.contact.per_region:
+        assert int(gb.region_need) > 0 and not bool(gb.region_overflow)
+
+
+# ---------------------------------------------------------------------------
+# cell-list broad phase
+# ---------------------------------------------------------------------------
+
+def _cells_both(x, y, r, alive, k, periodic, lx, cell, cap, n_skip=0):
+    want = neighbor_candidates_cells(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(r), jnp.asarray(alive),
+        k, periodic, lx, lx, cell, cap, n_skip_rows=n_skip)
+    got = tbp.neighbor_candidates_cells(
+        _t(x), _t(y), _t(r), _t(alive), k, periodic, lx, lx, cell, cap,
+        n_skip_rows=n_skip)
+    for f in ("idx", "valid", "shift", "overflow", "demand"):
+        w = np.asarray(getattr(want, f))
+        g = getattr(got, f).numpy()
+        if f in ("idx", "demand"):
+            assert g.dtype == np.int32, f
+        np.testing.assert_array_equal(g, w, err_msg=f)
+    return got
+
+
+@pytest.mark.parametrize("periodic,n_skip", [(True, 0), (False, 0),
+                                             (False, 4)])
+def test_cells_broadphase_identical(periodic, n_skip):
+    _, _, js, lx = lattice_state(8, periodic)
+    got = _cells_both(np.asarray(js.x), np.asarray(js.y),
+                      np.asarray(js.rmax), np.asarray(js.alive), 8,
+                      periodic, lx, 1.5 * 4000.0, 8, n_skip)
+    assert bool(got.valid.any()) and not bool(got.overflow)
+    # the same table as the dense broad phase, up to candidate order
+    dense = tbp.neighbor_candidates(
+        _t(js.x), _t(js.y), _t(js.rmax), _t(js.alive), 8, periodic, lx, lx,
+        n_skip_rows=n_skip)
+    for i in range(got.idx.shape[0]):
+        a = set(got.idx[i][got.valid[i]].tolist())
+        assert a == set(dense.idx[i][dense.valid[i]].tolist()), i
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_cells_broadphase_overfull_cell_and_ties(periodic):
+    # a regular lattice (exact distance ties) with K=3 < 8 neighbours, one
+    # cell holding more floes than its cap of 4, and two dead floes
+    side, pitch = 6, 1000.0
+    g = (np.arange(side) - (side - 1) / 2) * pitch
+    x, y = [a.ravel() for a in np.meshgrid(g, g)]
+    x = np.concatenate([x, [10.0, 20.0, 30.0, 40.0]])
+    y = np.concatenate([y, [15.0, 25.0, 35.0, 45.0]])
+    r = np.full(x.shape, 0.72 * pitch)
+    alive = np.ones(x.shape, bool)
+    alive[[3, 17]] = False
+    lx = side * pitch / 2
+    got = _cells_both(x, y, r, alive, 3, periodic, lx, 2.0 * pitch, 4)
+    assert bool(got.overflow)
+    assert int(got.demand) > 3
+
+
+def test_cells_broadphase_repeats_last_sorted_floe():
+    # A fault of the reference kept for parity (ROADMAP §C): the slot
+    # window of the last occupied cell runs past the end of the sorted
+    # floes, is clamped to the last slot, and lists that floe once per
+    # clamped slot.  On this 8 x 8 lattice with no dead floe (dead floes
+    # sort last and absorb the clamp), floe 6's row holds floe 63 four
+    # times, so its contact force with floe 63 counts four times.
+    _, _, js, lx = lattice_state(8, True, n_dead=0)
+    got = _cells_both(np.asarray(js.x), np.asarray(js.y),
+                      np.asarray(js.rmax), np.asarray(js.alive), 8, True,
+                      lx, 1.5 * 4000.0, 8)
+    row = got.idx[6][got.valid[6]].tolist()
+    assert row.count(63) == 4
+    assert bool(got.overflow)
