@@ -48,6 +48,41 @@ prints no result):
    active-pair pool on run (b)'s end state under
    ``torch.cuda.set_sync_debug_mode("error")``: no host sync.
 
+5. ``Simulation.run``, CPU against CUDA in float64, one chunk at a time
+   (each chunk starts the CUDA run from the CPU run's state, config and
+   lifecycle RNG: the packs amplify rounding, see ``sim_lockstep``):
+   ``out_of_box_sim`` for 200 steps with the mass ledger held to 1e-9 and
+   a CUDA checkpoint at step 100 that reloads field for field and runs one
+   chunk on like the straight run; ``uniaxial_sim()`` for 70 steps (the
+   walls move at 30 and 60); ``nares_sim(full_basin=True)`` for 60
+   (topography, its exact union in the Eulerian fields); ``winter_sim()``
+   with ``n_pack`` 50, AVERAGE and dissolved advection for 110 (merges
+   first fire at 105).  Depths are cut from 1000/210/150/150 to keep the
+   script in its time limit.  Every chunk: positions within 1e-6 m,
+   velocities within 1e-9 m/s (floes lighter than the median live floe:
+   the same bound on momentum), identical alive and nv, the same
+   lifecycle edits (kills, births, masses; polygons vertex for vertex, or
+   bounding the same region where the native boolean's vertex lists
+   differ), dissolved grid and ledger within 1e-9; at each run's end the
+   Eulerian fields of one state on both devices within 1e-9.  Every
+   lifecycle pass (merges, ridge, raft, fracture, corners, weld,
+   simplify, pack) must have run on CUDA.
+6. The full-size run in float32 (``big_winter``): the winter configuration
+   scaled in domain to lx = ly = 1e6 m with ~10,000 Voronoi floes of the
+   published case's ~20 km, all processes, periodic, gyre ocean, AVERAGE
+   on a 40x40 grid, the shadow ledger on; the cadence clock starts at step
+   60, 10 warm-up steps, then 30 timed steps (cut from 150: the host passes
+   take ~4.4 s a step at this size) through ``Simulation.run`` with the
+   launch counter zeroed just before and read just after.  It prints
+   floe-steps/s of the driver and of the bare ``make_step_fn`` step on the
+   same state, ``phase_report()`` with the lifecycle's per-pass seconds,
+   the live floe count before and after, peak memory and clip launches,
+   and holds the kernel against the plain version on the Eulerian call's
+   floe x cell pairs; it fails if a boundary's shadow-ledger drift, less
+   the reference's known updated-winner leak (ROADMAP §C), reaches 1e-6 of
+   the live mass, if corners, simplify, weld, ridge/raft or fracture never
+   ran, or if a chunk was committed with a pool overflow.
+
 Earlier lines report build time; at each timed shape the kernel's time per
 wrapper call (host launch cost included, as the record's ``ms``), its card
 time alone, the wrapper's host time per call, the plain version's time,
@@ -55,8 +90,8 @@ and the bound with the kernel's share of it; per run floe-steps/s,
 per-phase CUDA-event times, peak memory, the region-pool sizes and the
 largest region-pool demand.  The line before last holds the card's name
 and power limit; before it, one JSON object with the kernel's record, its
-``launches`` summed over the seven phase-4 runs.  The last line is
-``{"ok": true, "device": {...}}``.
+``launches`` summed over the seven phase-4 runs and the phase-6 run.  The
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -847,6 +882,521 @@ def phase_sync_check(state, cfg_region, cfg_pool, lx):
             f"{int(pc.pair_pool_need)})")
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the Simulation driver (lifecycle, diagnostics, output)
+# ---------------------------------------------------------------------------
+
+SIM_TOL_POS = 1e-6       # m
+SIM_TOL_VEL = 1e-9       # m/s (light floes: the same bound on momentum)
+
+
+def boundary_gap(p, q):
+    """Largest distance (m) from a vertex of either contour to the other
+    contour's boundary: 0 for the same region, whatever collinear or
+    near-duplicate points either vertex list carries and wherever it
+    starts."""
+    def one(a, b):
+        d = np.roll(b, -1, axis=0) - b
+        len2 = np.maximum(np.sum(d * d, axis=1), 1e-300)
+        t = np.clip(np.sum((a[:, None] - b[None]) * d[None], axis=-1) / len2,
+                    0.0, 1.0)
+        near = b[None] + t[..., None] * d[None]
+        return float(np.max(np.min(np.hypot(*(a[:, None] - near).T), axis=0)))
+
+    return max(one(p, q), one(q, p))
+
+
+def compare_edits(ea, eb, where):
+    """"same" when two boundaries' StateEdits agree vertex for vertex
+    (polygons within 1e-6 m; masses, updates and dissolved masses within
+    1e-9 relative); "same polygons" when a polygon's vertex list differs
+    but it bounds the same region (every vertex within 1e-6 m of the other
+    contour) — the native boolean keeps or drops split points on coincident
+    edges, and places the crossing of nearly parallel edges, by the inputs'
+    last bits; raises otherwise."""
+    def close(a, b):
+        return abs(a - b) <= 1e-9 * max(abs(a), abs(b), 1.0)
+
+    ok = (ea.kills == eb.kills and ea.dissolve_kills == eb.dissolve_kills
+          and ea.updates.keys() == eb.updates.keys()
+          and ea.reshapes.keys() == eb.reshapes.keys()
+          and len(ea.new_floes) == len(eb.new_floes)
+          and close(ea.export_mass, eb.export_mass)
+          and len(ea.dissolve_mass) == len(eb.dissolve_mass))
+    ok = ok and all(close(v, eb.updates[s][k]) for s in ea.updates
+                    for k, v in ea.updates[s].items())
+    ok = ok and all(close(a[2], b[2]) for a, b in zip(
+        sorted(ea.dissolve_mass, key=lambda r: r[2]),
+        sorted(eb.dissolve_mass, key=lambda r: r[2])))
+    pairs = [(f.poly, g.poly, f.mass, g.mass)
+             for f, g in zip(ea.new_floes, eb.new_floes)]
+    pairs += [(ea.reshapes[s][0], eb.reshapes[s][0], ea.reshapes[s][1],
+               eb.reshapes[s][1]) for s in ea.reshapes if ok]
+    verdict = "same"
+    for p, q, m, w in pairs if ok else ():
+        p, q = np.asarray(p), np.asarray(q)
+        if (m is None) != (w is None) or (m is not None and not close(m, w)):
+            ok = False
+        if p.shape != q.shape or float(np.max(np.abs(p - q))) >= 1e-6:
+            verdict = "same polygons"
+            ok = ok and boundary_gap(p, q) < 1e-6
+    if not ok:
+        raise AssertionError(f"{where}: the lifecycle edits differ")
+    return verdict
+
+
+def copy_run_state(dst, src):
+    """Set the Simulation ``dst`` (on its own device) to ``src``'s run
+    state: config, floe state, step, dissolved grid and tendency, AVERAGE
+    accumulator, lifecycle RNG and ledgers, pool-demand window."""
+    import torch
+
+    from subzero_tpu_torch.convert import state_from_numpy, state_to_numpy
+
+    dev = dst.state.device
+    dst.cfg = src.cfg
+    dst.state = state_from_numpy(state_to_numpy(src.state), device=dev,
+                                 dtype=str(src.state.x.dtype)[6:])
+    dst.step_idx = src.step_idx
+    dst.dissolved = np.array(src.dissolved)
+    dst.__post_init__()
+    dst._chunk_frozen = True
+    for k in ("amax", "exported_mass", "last_birth_nv"):
+        setattr(dst.lifecycle, k, getattr(src.lifecycle, k, 0))
+    dst.lifecycle.rng.bit_generator.state = \
+        src.lifecycle.rng.bit_generator.state
+    dst._demand_win = list(getattr(src, "_demand_win", []))
+    dst._aux_cap = getattr(src, "_aux_cap", 512)
+    dst._eul_n = getattr(src, "_eul_n", 0)
+    acc = getattr(src, "_eul_acc", None)
+    dst._eul_acc = None if acc is None else type(acc)(
+        *(t.to(dev) for t in acc))
+    tend = getattr(src, "_vd_tend", None)
+    dst._vd_tend = None if tend is None else tend.to(dev)
+    torch.cuda.synchronize()
+
+
+def snapshot(state):
+    """The fields the lockstep compares, as numpy arrays."""
+    return {k: getattr(state, k).cpu().numpy()
+            for k in ("x", "y", "u", "v", "ksi", "mass", "alive", "nv")}
+
+
+def run_deltas(sa, sb, step, keep=None):
+    """(max |d position|, max |d velocity|) of two snapshots over the slots
+    in ``keep`` (all by default), velocity deltas of floes lighter than the
+    median live floe scaled by their mass share; raises if alive or nv
+    differ there."""
+    keep = np.ones(sa["x"].shape, bool) if keep is None else keep
+    if not (np.array_equal(sa["alive"][keep], sb["alive"][keep])
+            and np.array_equal(sa["nv"][keep], sb["nv"][keep])):
+        raise AssertionError(f"step {step}: alive/nv differ")
+    w = np.minimum(1.0, sa["mass"] / np.median(sa["mass"][sa["alive"]]))
+    dpos = max(float(np.max(np.abs(sa[k] - sb[k])[keep]))
+               for k in ("x", "y"))
+    dvel = max(float(np.max((np.abs(sa[k] - sb[k]) * w)[keep]))
+               for k in ("u", "v", "ksi"))
+    return dpos, dvel
+
+
+def ledger(sim):
+    """floes + dissolved + exported mass of a Simulation, kg."""
+    return (sim.total_mass() + float(np.sum(sim.dissolved))
+            + sim.lifecycle.exported_mass)
+
+
+def sim_lockstep(label, build, steps, save_at=None, check_ledger=False):
+    """``steps`` float64 steps of one validation Simulation on the CPU
+    (plain clip) and on CUDA (kernel), one chunk at a time: each chunk
+    starts the CUDA run from the CPU run's state, config and lifecycle RNG,
+    and both must end it with positions within SIM_TOL_POS, velocities
+    within SIM_TOL_VEL and identical alive and nv, both just before the
+    boundary's edits and after them, the same lifecycle edits
+    (``compare_edits``), and the same dissolved grid and ledger within
+    1e-9.  Where the edits are the same polygons in other vertex lists, the
+    slots they wrote are left out after the boundary: vertex capping and
+    simplification act on the lists.  Chunk by chunk, because the packs amplify
+    rounding: in the JAX package alone a 1e-8 m nudge to one floe grows to
+    1.3e-6 m and 4.9e-8 m/s in 300 out-of-box steps.  ``save_at``: save the
+    CUDA run there, load it into a new Simulation (state equal field by
+    field) and hold one chunk of each to the tolerances.  Returns the CUDA
+    run's lifecycle pass times."""
+    import tempfile
+
+    import torch
+
+    import subzero_tpu_torch.processes.lifecycle as tlc
+    from subzero_tpu_torch.convert import state_to_numpy
+    from subzero_tpu_torch.sim import Simulation
+
+    logs = {"cpu": [], "cuda": [], "checkpoint": []}
+    running = ["cpu"]
+    orig = tlc.apply_edits
+
+    def logged(state, edit, cfg, seed=0, view=None):
+        logs[running[0]].append((edit, snapshot(state)))
+        return orig(state, edit, cfg, seed=seed, view=view)
+
+    tlc.apply_edits = logged
+    try:
+        cpu, gpu = build("cpu"), build("cuda")
+        m0 = ledger(cpu)
+        worst = [0.0, 0.0, 0.0]
+        verdicts, t_cpu, t_gpu = [], 0.0, 0.0
+        while cpu.step_idx < steps:
+            copy_run_state(gpu, cpu)
+            n = min(cpu._chunk, steps - cpu.step_idx)
+            t0 = time.perf_counter()
+            running[0] = "cpu"
+            cpu.run(n)
+            t_cpu += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            running[0] = "cuda"
+            gpu.run(n)
+            torch.cuda.synchronize()
+            t_gpu += time.perf_counter() - t0
+            if len(logs["cpu"]) != len(logs["cuda"]):
+                raise AssertionError(f"{label} step {cpu.step_idx}: a "
+                                     f"lifecycle boundary ran on one device")
+            keep = None
+            checks = []
+            if len(logs["cpu"]) > len(verdicts):
+                # the chunk's physics, up to the boundary's edits
+                (ea, pre), (eb, pre_b) = logs["cpu"][-1], logs["cuda"][-1]
+                checks.append(run_deltas(pre, pre_b, cpu.step_idx))
+                verdict = compare_edits(ea, eb,
+                                        f"{label} step {cpu.step_idx}")
+                verdicts.append(verdict)
+                if verdict != "same":
+                    # the same polygons in other vertex lists: capping
+                    # (_cap_vertices) and simplification act on the lists,
+                    # so the slots the edits wrote may differ; hold the rest
+                    born = snapshot(cpu.state)["alive"].copy()
+                    born[:len(pre["alive"])] &= ~pre["alive"]  # may grow
+                    keep = ~born
+                    keep[list(ea.kills | ea.dissolve_kills
+                              | set(ea.reshapes))] = False
+            checks.append(run_deltas(snapshot(cpu.state),
+                                     snapshot(gpu.state), cpu.step_idx,
+                                     keep))
+            dpos = max(c[0] for c in checks)
+            dvel = max(c[1] for c in checks)
+            dled = abs(ledger(cpu) - ledger(gpu)) / m0
+            worst = [max(worst[0], dpos), max(worst[1], dvel),
+                     max(worst[2], dled)]
+            if dpos > SIM_TOL_POS or dvel > SIM_TOL_VEL or dled > 1e-9:
+                raise AssertionError(
+                    f"{label} step {cpu.step_idx}: CPU and CUDA runs differ "
+                    f"(d pos {dpos:.3e} m, d vel {dvel:.3e} m/s, d ledger "
+                    f"{dled:.3e})")
+            if check_ledger:
+                drift = abs(ledger(cpu) - m0) / m0
+                if drift > 1e-9:
+                    raise AssertionError(f"{label} step {cpu.step_idx}: "
+                                         f"ledger drift {drift:.3e}")
+            if cpu.step_idx == save_at:
+                with tempfile.TemporaryDirectory() as d:
+                    gpu.save(d)
+                    loaded = Simulation.load(d, gpu.cfg, gpu.forcing,
+                                             device="cuda")
+                a, b = state_to_numpy(gpu.state), state_to_numpy(
+                    loaded.state)
+                if any(not np.array_equal(a[k], b[k]) for k in a):
+                    raise AssertionError(f"{label}: a loaded checkpoint "
+                                         f"differs from the saved state")
+                running[0] = "checkpoint"
+                gpu.run(cpu._chunk)
+                loaded.run(cpu._chunk)
+                dp, dv = run_deltas(snapshot(gpu.state),
+                                    snapshot(loaded.state), gpu.step_idx)
+                if dp > SIM_TOL_POS or dv > SIM_TOL_VEL:
+                    raise AssertionError(f"{label}: the run resumed at step "
+                                         f"{save_at} differs from the "
+                                         f"straight run")
+                log(f"[sim5] {label}: CUDA checkpoint at step {save_at} "
+                    f"reloads equal field by field; one chunk on: d pos "
+                    f"{dp:.3e} m, d vel {dv:.3e} m/s")
+        # the Eulerian fields of one state on both devices (the boundary
+        # union, the floe x cell clip: kernel against plain)
+        copy_run_state(gpu, cpu)
+        ea, eb = cpu.eulerian(), gpu.eulerian()
+        for k in ea._fields:
+            a, b = getattr(ea, k).numpy(), getattr(eb, k).cpu().numpy()
+            if np.max(np.abs(a - b)) > 1e-9 * max(np.max(np.abs(a)), 1e-300):
+                raise AssertionError(f"{label}: Eulerian {k} differs")
+    finally:
+        tlc.apply_edits = orig
+    n_alive = int(gpu.state.alive.sum())
+    log(f"[sim5] {label}: {steps} steps in {len(verdicts)} lifecycle "
+        f"boundaries ({verdicts.count('same polygons')} with the same "
+        f"polygons in other vertex lists); max d pos {worst[0]:.3e} m, max d vel "
+        f"{worst[1]:.3e} m/s, max d ledger {worst[2]:.3e}; alive {n_alive}; "
+        f"CPU {t_cpu:.1f} s, CUDA {t_gpu:.1f} s; passes "
+        f"{sorted(getattr(gpu.lifecycle, 'pass_times', {}))}")
+    return dict(getattr(gpu.lifecycle, "pass_times", {}))
+
+
+def phase_sim_parity():
+    """Phase 5: the validation runs, CPU against CUDA in float64."""
+    import dataclasses
+
+    import subzero_tpu_torch.validation as tval
+    from subzero_tpu_torch.sim import out_of_box_sim
+
+    def winter(dev):
+        sim = tval.winter_sim(device=dev, dtype="float64")
+        sim.cfg = sim.cfg.replace(processes=dataclasses.replace(
+            sim.cfg.processes, n_pack=50, average=True,
+            advect_dissolved=True))
+        return sim
+
+    # Depths cut to keep the script inside its time limit: the CPU side of
+    # this phase took 926 s at 1000/210/150/150 steps on the H100's host.
+    # The 1000-step mass ledger stays in tests/test_torch_diagnostics.py;
+    # fracture runs in the winter run (75); merges first fire at step 105
+    # of the winter run, so it keeps 110 steps.
+    fired = set()
+    fired |= set(sim_lockstep(
+        "out_of_box_sim", lambda d: out_of_box_sim(device=d,
+                                                   dtype="float64"),
+        200, save_at=100, check_ledger=True))
+    fired |= set(sim_lockstep(
+        "uniaxial_sim", lambda d: tval.uniaxial_sim(device=d,
+                                                    dtype="float64"), 70))
+    fired |= set(sim_lockstep(
+        "nares_sim(full_basin=True)",
+        lambda d: tval.nares_sim(full_basin=True, device=d,
+                                 dtype="float64"), 60))
+    fired |= set(sim_lockstep("winter_sim(n_pack=50, average, advect)",
+                              winter, 110))
+    passes = ("merges", "ridge", "raft", "fracture", "corners", "weld",
+              "simplify", "pack")
+    missing = [p for p in passes if p not in fired]
+    log(f"[sim5] lifecycle passes that ran on CUDA: {sorted(fired)}")
+    if missing:
+        raise AssertionError(f"lifecycle passes never ran: {missing}")
+
+
+N_BIG = 10000             # phase 6: Voronoi floes of the scaled winter pack
+# Cut from the 150 steps after 10 of the first design: the host passes at
+# 10,000 floes take ~4.4 s a step (663 s for 150 steps on the H100's host),
+# past the script's time limit.  The cadence clock starts at step 60, so
+# the 30 timed steps (71-100) hold fracture and weld (75), simplify (80,
+# 100), weld (100) and corners, ridge and raft every 10 steps.
+BIG_START = 60
+BIG_WARMUP = 10
+BIG_STEPS = 30
+
+
+def big_winter(seed=0):
+    """The winter configuration (all processes, periodic, freezing) scaled
+    in domain, not in floe size: lx = ly = 1e6 m and ~10,000 Voronoi floes
+    (the ~20 km floes of the 100-floe published case), built on a 25x25
+    target-concentration grid so bounded_voronoi stays cheap.  The minimum
+    floe sizes keep the published case's absolute values (Voronoi cull
+    4e6 m^2, cfg.min_floe_size 2e6 m^2).  Capacity as winter_sim sets it
+    (2x floes, 64 vertices, K 12, 400 Monte-Carlo points, stress window
+    1000), the gyre ocean scaled with the domain (its grid and transport
+    x10: the same currents over a 10x larger box), AVERAGE on a 40x40 grid,
+    the shadow ledger on; float32 on CUDA."""
+    from subzero_tpu_torch.config import (
+        CapacityConfig, DomainConfig, NumericsConfig, PhysicsConfig,
+        ProcessConfig, SimConfig,
+    )
+    from subzero_tpu_torch.forcing import gyre_ocean, thermo_params
+    from subzero_tpu_torch.init import default_modulus, voronoi_floe_field
+    from subzero_tpu_torch.sim import Simulation
+    from subzero_tpu_torch.state import state_from_polygons
+
+    cfg = SimConfig(
+        physics=PhysicsConfig(mu_friction=0.3),
+        processes=ProcessConfig(
+            collision=True, fractures=True, corners=True, welding=True,
+            ridging=True, rafting=True, packing=True, periodic=True,
+            keep_min=True, n_pack=5500, average=True),
+        numerics=NumericsConfig(dt=10.0),
+        domain=DomainConfig(lx=1e6, ly=1e6),
+        capacity=CapacityConfig(max_floes=2 * N_BIG, max_verts=64,
+                                max_neighbors=12, n_mc_points=400,
+                                stress_window=1000),
+    )
+    polys, heights = voronoi_floe_field(
+        cfg, np.ones((25, 25)), N_BIG, height_mean=0.25, height_delta=0.0,
+        min_floe_size=4e6, seed=seed)
+    st = state_from_polygons(polys, heights, cfg, seed=seed)
+    modulus = default_modulus(st.area[: len(polys)].cpu().numpy())
+    heat_flux, _ = thermo_params(cfg.numerics.dt, cfg.processes.n_pack)
+    cfg = cfg.replace(min_floe_size=2e6, heat_flux=heat_flux)
+    sim = Simulation(cfg=cfg, state=st,
+                     forcing=gyre_ocean(lx=4e6, dx=1e5, transport=5e4),
+                     modulus=modulus, heat_flux=heat_flux, seed=seed,
+                     nx_coarse=40, ny_coarse=40, step_idx=BIG_START)
+    sim.lifecycle.shadow_ledger = True
+    return sim, len(polys)
+
+
+def phase_big_run(kernel_record):
+    """Phase 6: the scaled winter pack through ``Simulation.run`` in
+    float32 on CUDA — the port's main path at full size."""
+    import torch
+
+    from subzero_tpu_torch.dynamics.step import make_step_fn
+    from subzero_tpu_torch.kernels import clip as kclip
+    from subzero_tpu_torch.sim import Simulation
+
+    t0 = time.perf_counter()
+    sim, n_polys = big_winter()
+    torch.cuda.synchronize()
+    log(f"[big] built the scaled winter pack: {n_polys} Voronoi floes in "
+        f"{N_BIG * 2} slots in {time.perf_counter() - t0:.1f} s")
+    overflowed = []
+    orig = Simulation._grow_pools
+
+    def watched(self, s):
+        grew = orig(self, s)
+        if not grew and (s[2] or s[8] or s[10]):
+            overflowed.append(self.step_idx)   # committed with an overflow
+        return grew
+
+    # The reference's known leak (ROADMAP §C): a ridge or raft winner's
+    # gained mass is an update, and a later pass of the same boundary that
+    # kills or reshapes the winner works from its pre-update mass.  Each
+    # boundary's shadow-ledger drift minus that loss must stay below 1e-6
+    # of the live mass.
+    import subzero_tpu_torch.processes.lifecycle as tlc
+
+    boundaries = []
+    orig_apply, orig_step = tlc.apply_edits, tlc.Lifecycle.step
+
+    def leak_of(state, edit, cfg, seed=0, view=None):
+        cut = edit.kills | edit.dissolve_kills | set(edit.reshapes)
+        boundaries[-1]["leak"] = sum(
+            kv["mass"] - float(view.mass[s]) for s, kv in edit.updates.items()
+            if s in cut and "mass" in kv)
+        return orig_apply(state, edit, cfg, seed=seed, view=view)
+
+    def step_drift(self, *a, **k):
+        boundaries.append({"leak": 0.0, "before": self.ledger_drift})
+        out = orig_step(self, *a, **k)
+        boundaries[-1]["drift"] = self.ledger_drift - boundaries[-1]["before"]
+        return out
+
+    Simulation._grow_pools = watched
+    tlc.apply_edits, tlc.Lifecycle.step = leak_of, step_drift
+    try:
+        sim.run(BIG_WARMUP)
+        torch.cuda.synchronize()
+        alive0 = int(sim.state.alive.sum())
+        mass0 = sim.total_mass()
+        sim.phase_times.clear()
+        getattr(sim.lifecycle, "pass_times", {}).clear()
+        torch.cuda.reset_peak_memory_stats()
+        kclip.clip_stats_cuda.launches = 0
+        t0 = time.perf_counter()
+        sim.run(BIG_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kclip.clip_stats_cuda.launches
+    finally:
+        Simulation._grow_pools = orig
+        tlc.apply_edits, tlc.Lifecycle.step = orig_apply, orig_step
+    alive1 = int(sim.state.alive.sum())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rate = sim.state.n * BIG_STEPS / wall
+    live_rate = alive0 * BIG_STEPS / wall
+    log(f"[big] Simulation.run: {BIG_STEPS} steps (from step "
+        f"{BIG_START + BIG_WARMUP}) in {wall:.2f} s after "
+        f"{BIG_WARMUP} warm-up steps: {rate:.1f} floe-steps/s over "
+        f"{sim.state.n} slots ({live_rate:.1f} over the {alive0} live "
+        f"floes); live floes {alive0} -> {alive1}; peak memory {peak:.2f} "
+        f"GiB; clip launches {launches}; chunk {sim._chunk} steps")
+    for line in sim.phase_report().splitlines():
+        log(f"[big] {line}")
+    lc = sim.lifecycle
+    unexplained = max((abs(b["drift"] + b["leak"]) for b in boundaries
+                       if "drift" in b), default=0.0)
+    leak = sum(b["leak"] for b in boundaries)
+    log(f"[big] shadow ledger: drift max {lc.ledger_drift_max:+.6e} kg "
+        f"({lc.ledger_drift_max / mass0:+.3e} of the live mass), summed "
+        f"{lc.ledger_drift:+.6e} kg over {len(boundaries)} boundaries, of "
+        f"which the reference's updated-winner leak explains "
+        f"{-leak:+.6e} kg; largest unexplained drift of a boundary "
+        f"{unexplained:.6e} kg ({unexplained / mass0:.3e}); pools K "
+        f"{sim.cfg.capacity.max_neighbors}, region_pair_frac "
+        f"{sim.cfg.contact.region_pair_frac:.4g}, vertex rung "
+        f"{sim.state.v_cap}; committed chunks with an overflow: "
+        f"{overflowed}")
+    # the bare physics step on the same state, no driver around it
+    step = make_step_fn(sim.cfg, sim.forcing, sim.modulus, sim.heat_flux)
+    st = sim.state
+    st, _ = step(st, sim.step_idx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, 21):
+        st, _ = step(st, sim.step_idx + i)
+    torch.cuda.synchronize()
+    bare = sim.state.n * 20 / (time.perf_counter() - t0)
+    log(f"[big] bare make_step_fn step on the same state: {bare:.1f} "
+        f"floe-steps/s over {sim.state.n} slots (20 steps)")
+    # the kernel at the diagnostics' own inputs (the floe x cell pairs of
+    # one Eulerian call on the end state), against the plain version
+    from subzero_tpu_torch import diagnostics as tdiag
+    from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
+
+    captured = []
+    saved = tdiag.clip_stats
+
+    def capture(p, q, difference):
+        captured.append((p.contiguous(), q.contiguous()))
+        return saved(p, q, difference)
+
+    tdiag.clip_stats = capture
+    try:
+        kclip.clip_stats_cuda.launches = 0
+        sim.eulerian()
+        per_call = kclip.clip_stats_cuda.launches
+    finally:
+        tdiag.clip_stats = saved
+    (a, b), = captured
+    n = min(a.shape[0], 131072)
+    got = kclip.clip_stats_cuda(a, b, False)
+    want = clip_integral_bm(a[:n], b[:n], False)
+    da, dc = compare(type(got)(*(x[:n] for x in got)), want, torch.float32,
+                     "Eulerian floe x cell pairs")
+    log(f"[kernel] Eulerian floe x cell B={a.shape[0]} Vp={a.shape[1]} "
+        f"Vq={b.shape[1]}: first {n} pairs max|d area| {da:.3e}  max|d "
+        f"chord| {dc:.3e}  n_cross equal")
+    time_kernel("Eulerian floe x cell", a, b, False,
+                plain_on=n if n < a.shape[0] else None)
+    log(f"[big] clip launches: {launches / BIG_STEPS:.2f} per step in "
+        f"Simulation.run (the step's overlap clip, plus the AVERAGE "
+        f"Eulerian call), {per_call} per Eulerian call")
+    if launches == 0:
+        raise AssertionError("phase 6 ran without launching the clip kernel")
+    if unexplained >= 1e-6 * mass0:
+        raise AssertionError(f"a boundary's shadow-ledger drift, less the "
+                             f"reference's known leak, is {unexplained} kg: "
+                             f"1e-6 of the live mass or more")
+    fired = set(getattr(lc, "pass_times", {}))
+    missing = [p for p in ("corners", "simplify", "weld", "fracture")
+               if p not in fired]
+    if not fired & {"ridge", "raft"}:
+        missing.append("ridge/raft")
+    if missing:
+        raise AssertionError(f"phase 6: lifecycle passes never ran: "
+                             f"{missing}")
+    if overflowed:
+        raise AssertionError(f"chunks committed with a pool overflow at "
+                             f"steps {overflowed}")
+    for k in ("x", "y", "u", "v"):
+        t = getattr(sim.state, k)[sim.state.alive]
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"phase 6: state.{k} not finite")
+    kernel_record["max_abs_err"] = max(kernel_record["max_abs_err"], da)
+    kernel_record["launches"] += launches
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -858,6 +1408,11 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"[device] {name}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    log(f"[device] {smi.stdout.strip().splitlines()[0]}")
 
     t_all = time.perf_counter()
     phase_build()
@@ -872,12 +1427,10 @@ def main() -> int:
     }
     phase_main_path(record)
     record["max_abs_err"] = max(record["max_abs_err"], worst)
+    phase_sim_parity()
+    phase_big_run(record)
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

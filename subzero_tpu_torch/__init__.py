@@ -11,8 +11,11 @@ are copied).  Entry points run on the GPU (``device="cuda"``) unless the
 caller passes ``device="cpu"``, as the tests do; on CPU tensors every kernel
 wrapper uses its plain PyTorch version.
 
-Ported so far: the single-device physics step in aggregate-contact mode
-(``ContactConfig(per_region=False)``), see ROADMAP.md.
+Ported so far: whole single-device simulations — the ``Simulation`` driver
+(``sim.py``), the lifecycle boundary and its passes (``processes/``), the
+Eulerian diagnostics, the Voronoi initial state and the validation cases —
+at every contact and broad-phase option of the JAX step except
+``contact_impl="xla"``; see ROADMAP.md for what is left.
 """
 
 from .config import SimConfig

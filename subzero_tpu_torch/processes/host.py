@@ -1,0 +1,581 @@
+"""Host-side view of the floe state + slot-edit application.
+
+The lifecycle processes work on numpy copies of the per-floe scalars and
+world-frame polygons (cheap: O(N) scalars + O(N V) vertices).  The big
+device-resident buffers (stress ring history, Monte-Carlo masks) are never
+pulled wholesale; edits touch only affected slots via indexed writes.
+
+The port's copy of ``subzero_tpu/processes/host.py``.  ``HostView``, the
+host broad phase and the edit records are verbatim; ``extract_view`` is one
+device->host copy of a packed ``[N, W]`` tensor, and ``apply_edits`` writes
+the edited slots with indexed writes on the state's device into new tensors
+(the input state is never written).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..config import SimConfig
+from ..state import FloeState, make_floe_arrays
+
+SCALARS = (
+    "x", "y", "alpha", "u", "v", "ksi", "h", "mass", "inertia", "area",
+    "rmax", "dx_p", "dy_p", "dalpha_p", "du_p", "dv_p", "dksi_p",
+    "overlap_area",
+)
+
+
+@dataclass
+class HostView:
+    """Numpy snapshot of the floe population (live slots only have
+    meaningful values; dead slots flagged by ``alive``)."""
+
+    n: int
+    alive: np.ndarray
+    nv: np.ndarray
+    polys: list[np.ndarray | None]      # world-frame [nv, 2] or None if dead
+    stress: np.ndarray                   # [N, 3] mean stress
+    strain: np.ndarray                   # [N, 3]
+    # scalar fields, each [N]
+    fields: dict[str, np.ndarray] = field(default_factory=dict)
+
+    def __getattr__(self, name):
+        try:
+            return self.fields[name]
+        except KeyError:
+            raise AttributeError(name)
+
+    def poly(self, i: int) -> np.ndarray:
+        p = self.polys[i]
+        if p is None:
+            raise ValueError(f"slot {i} is dead")
+        return p
+
+    def masked(self, dead_slots=None, keep_mask=None):
+        """Scoped view with some slots hidden (alive=False): exception-safe
+        replacement for the save/mutate/restore pattern.  ``dead_slots``:
+        iterable of slots to hide; ``keep_mask``: [N] bool of slots to keep.
+        """
+        import contextlib
+
+        @contextlib.contextmanager
+        def cm():
+            saved = self.alive
+            masked = saved.copy()
+            if dead_slots is not None:
+                for i in dead_slots:
+                    masked[i] = False
+            if keep_mask is not None:
+                masked &= keep_mask
+            self.alive = masked
+            try:
+                yield self
+            finally:
+                self.alive = saved
+
+        return cm()
+
+
+def _pack_view(state: FloeState) -> torch.Tensor:
+    """Every field the host passes need as ONE [N, F] tensor in the state
+    dtype, so the view costs a single device->host copy.  All fields are
+    exactly representable in the state dtype (alive/nv are tiny ints)."""
+    n = state.n
+    dt = state.x.dtype
+    cols = [state.alive.to(dt)[:, None], state.nv.to(dt)[:, None]]
+    cols += [getattr(state, k)[:, None] for k in SCALARS]
+    cols += [state.stress, state.strain]
+    cols += [state.verts_world().reshape(n, -1)]
+    return torch.cat(cols, dim=1)
+
+
+def _pack_kin(state: FloeState) -> torch.Tensor:
+    return torch.stack([state.u, state.v, state.ksi, state.dx_p, state.dy_p,
+                        state.du_p, state.dv_p, state.dksi_p], dim=1)
+
+
+def view_width(max_verts: int) -> int:
+    """Column count of the packed view [N, W]: alive + nv + scalars +
+    stress(3) + strain(3) + 2*V world vertices."""
+    return 2 + len(SCALARS) + 6 + 2 * max_verts
+
+
+def unpack_view(packed: np.ndarray, n: int) -> HostView:
+    """Rebuild a HostView from the packed [N, W] host array (the fetch may
+    have ridden a larger combined boundary fetch — sim.run packs view +
+    aux + merge tables into ONE device->host copy)."""
+    ns = len(SCALARS)
+    alive = packed[:, 0] != 0.0
+    nv = packed[:, 1].astype(np.int32)
+    fields = {k: packed[:, 2 + i] for i, k in enumerate(SCALARS)}
+    stress = packed[:, 2 + ns: 5 + ns]
+    strain = packed[:, 5 + ns: 8 + ns]
+    verts = packed[:, 8 + ns:].reshape(n, -1, 2)
+    polys: list[np.ndarray | None] = [
+        verts[i, : nv[i]].astype(np.float64) if alive[i] and nv[i] >= 3 else None
+        for i in range(n)
+    ]
+    return HostView(
+        n=n, alive=alive, nv=nv, polys=polys,
+        stress=stress, strain=strain, fields=fields,
+    )
+
+
+def extract_view(state: FloeState, cfg: SimConfig) -> HostView:
+    return unpack_view(_pack_view(state).cpu().numpy(),  # ONE copy
+                       state.n)
+
+
+def candidate_pairs(
+    view: HostView, cfg: SimConfig,
+    indices: list[int] | None = None,
+) -> list[tuple[int, int, tuple[float, float]]]:
+    """Spatial-hash broad phase over live floes: unordered candidate pairs
+    (i, j, shift) whose bounding circles overlap, where ``shift`` is the
+    minimum-image translation to apply to floe j's polygon when PERIODIC
+    (the host-pass equivalent of the reference's ghost-floe construction,
+    floe_interactions_all.m:18-66 / corners.m:13-49 / weld.m ghosts).
+
+    O(N x local density) — replaces the O(N^2) pure-Python double loop that
+    round-1 used (VERDICT item 4).
+    """
+    lx, ly = cfg.domain.lx, cfg.domain.ly
+    periodic = cfg.processes.periodic
+    if indices is None:
+        alive = view.alive
+        indices = [i for i in range(view.n)
+                   if alive[i] and view.polys[i] is not None]
+    if len(indices) < 2:
+        return []
+    idx = np.asarray(indices)
+    m = len(idx)
+    x = view.x[idx]
+    y = view.y[idx]
+    r = view.rmax[idx]
+    cell = max(float(2.0 * r.max()), 1.0)
+    nx = max(int(np.ceil(2 * lx / cell)), 1)
+    ny = max(int(np.ceil(2 * ly / cell)), 1)
+    cx = np.clip(((x + lx) / cell).astype(np.int64), 0, nx - 1)
+    cy = np.clip(((y + ly) / cell).astype(np.int64), 0, ny - 1)
+
+    # sort members by bin; per-bin ranges via searchsorted — the whole pass
+    # is numpy-vectorized (no per-candidate Python loop; round-2 VERDICT
+    # weak #6)
+    b = cy * nx + cx
+    order = np.argsort(b, kind="stable")
+    bs = b[order]
+
+    out_i = []
+    out_j = []
+    out_sx = []
+    out_sy = []
+    for dbx in (-1, 0, 1):
+        for dby in (-1, 0, 1):
+            qx = cx + dbx
+            qy = cy + dby
+            sx = np.zeros(m)
+            sy = np.zeros(m)
+            if periodic:
+                sx = np.where(qx < 0, -2 * lx,
+                              np.where(qx >= nx, 2 * lx, 0.0))
+                sy = np.where(qy < 0, -2 * ly,
+                              np.where(qy >= ny, 2 * ly, 0.0))
+                qx = qx % nx
+                qy = qy % ny
+                valid = np.ones(m, bool)
+            else:
+                valid = (qx >= 0) & (qx < nx) & (qy >= 0) & (qy < ny)
+                qx = np.clip(qx, 0, nx - 1)
+                qy = np.clip(qy, 0, ny - 1)
+            qb = qy * nx + qx
+            start = np.searchsorted(bs, qb, "left")
+            end = np.searchsorted(bs, qb, "right")
+            cnt = np.where(valid, end - start, 0)
+            tot = int(cnt.sum())
+            if tot == 0:
+                continue
+            rep = np.repeat(np.arange(m), cnt)           # a-slot / candidate
+            within = np.arange(tot) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+            bidx = order[np.repeat(start, cnt) + within]  # b-slot
+            dx = x[rep] - (x[bidx] + sx[rep])
+            dy = y[rep] - (y[bidx] + sy[rep])
+            rr = r[rep] + r[bidx]
+            hit = (dx * dx + dy * dy < rr * rr) & (rep != bidx)
+            if not hit.any():
+                continue
+            out_i.append(rep[hit])
+            out_j.append(bidx[hit])
+            out_sx.append(sx[rep[hit]])
+            out_sy.append(sy[rep[hit]])
+
+    if not out_i:
+        return []
+    ai = np.concatenate(out_i)
+    bj = np.concatenate(out_j)
+    sx = np.concatenate(out_sx)
+    sy = np.concatenate(out_sy)
+    gi = idx[ai]
+    gj = idx[bj]
+    # canonical order (i < j, shift applies to j's polygon)
+    swap = gi > gj
+    gi2 = np.where(swap, gj, gi)
+    gj2 = np.where(swap, gi, gj)
+    sx = np.where(swap, -sx, sx)
+    sy = np.where(swap, -sy, sy)
+    # dedup on (i, j, quantized shift)
+    ssx = np.rint(sx / (2 * lx)).astype(np.int64) + 1
+    ssy = np.rint(sy / (2 * ly)).astype(np.int64) + 1
+    key = ((gi2.astype(np.int64) * (view.n + 1) + gj2) * 3 + ssx) * 3 + ssy
+    _, keep = np.unique(key, return_index=True)
+    return [(int(gi2[k]), int(gj2[k]), (float(sx[k]), float(sy[k])))
+            for k in keep]
+
+
+def min_image_shift(view: HostView, i: int, j: int,
+                    cfg: SimConfig) -> np.ndarray:
+    """Minimum-image translation to apply to floe j's polygon so it sits in
+    floe i's frame (zero when not periodic)."""
+    s = np.zeros(2)
+    if cfg.processes.periodic:
+        lx, ly = cfg.domain.lx, cfg.domain.ly
+        s[0] = -2 * lx * np.round((view.x[j] - view.x[i]) / (2 * lx))
+        s[1] = -2 * ly * np.round((view.y[j] - view.y[i]) / (2 * ly))
+    return s
+
+
+@dataclass
+class NewFloe:
+    """A floe to be materialized into a free slot.
+
+    stress_blend: [(parent_slot, weight)] — the new floe's stress ring
+    history is Σ w_k · hist[parent_k] (covers fracture's zeroing (empty
+    list), fusion's mass-weighted average, and corner grinding's area
+    scaling with a single rule).
+    """
+
+    poly: np.ndarray                       # world frame [n, 2]
+    h: float
+    u: float = 0.0
+    v: float = 0.0
+    ksi: float = 0.0
+    dx_p: float = 0.0
+    dy_p: float = 0.0
+    du_p: float = 0.0
+    dv_p: float = 0.0
+    dksi_p: float = 0.0
+    strain: np.ndarray | None = None       # [3]
+    stress_blend: list[tuple[int, float]] = field(default_factory=list)
+    mass: float | None = None              # override mass (h then derived)
+
+
+@dataclass
+class StateEdit:
+    """Accumulated topology changes from one lifecycle pass."""
+
+    kills: set[int] = field(default_factory=set)
+    # kills whose mass must be binned into the dissolved field
+    # (calc_dissolved_mass.m; fusion kills conserve mass and stay out)
+    dissolve_kills: set[int] = field(default_factory=set)
+    # loose mass [(x, y, kg)] to bin into the dissolved field without a
+    # whole-slot kill: sub-minimum corner-grind pieces (frac_corner.m:113-115
+    # births them dead), residual loser mass when a ridge loser fully
+    # dissolves after the winner took the overlap volume, fracture's
+    # plastic-deformation area loss.  Closes the mass ledger.
+    dissolve_mass: list[tuple[float, float, float]] = field(
+        default_factory=list)
+    # mass pushed out of the domain (boundary-ridging sliver, ridge.m:79,110)
+    # — physically exported, tracked so floes+dissolved+exported is conserved
+    export_mass: float = 0.0
+    new_floes: list[NewFloe] = field(default_factory=list)
+    # in-place scalar updates {slot: {field: value}} for floes that changed
+    # thickness/mass without changing shape (ridging winners)
+    updates: dict[int, dict[str, float]] = field(default_factory=dict)
+    # shape replacement for an existing slot (keeps identity/kinematics):
+    # {slot: (poly, new_mass)}
+    reshapes: dict[int, tuple[np.ndarray, float]] = field(default_factory=dict)
+
+    def merge(self, other: "StateEdit") -> None:
+        self.kills |= other.kills
+        self.dissolve_kills |= other.dissolve_kills
+        self.dissolve_mass.extend(other.dissolve_mass)
+        self.export_mass += other.export_mass
+        self.new_floes.extend(other.new_floes)
+        for k, v in other.updates.items():
+            self.updates.setdefault(k, {}).update(v)
+        self.reshapes.update(other.reshapes)
+
+    @property
+    def empty(self) -> bool:
+        return (not self.kills and not self.dissolve_kills
+                and not self.new_floes and not self.updates
+                and not self.reshapes and not self.dissolve_mass
+                and not self.export_mass)
+
+
+def _cap_vertices(poly: np.ndarray, v_max: int) -> np.ndarray:
+    """Drop shortest-edge vertices down to the cap, rescaling about the
+    centroid to conserve area (FloeSimplify.m:40,56 behavior)."""
+    poly = np.asarray(poly, dtype=np.float64)
+    if len(poly) <= v_max:
+        return poly
+    from .. import hostgeom as hg
+
+    a0 = abs(hg.area(poly))
+    while len(poly) > v_max:
+        e = poly - np.roll(poly, 1, axis=0)
+        k = int(np.argmin(np.sum(e * e, axis=1)))
+        poly = np.delete(poly, k, axis=0)
+    a1 = abs(hg.area(poly))
+    if a1 > 0:
+        c = hg.centroid(poly)
+        poly = c + np.sqrt(a0 / a1) * (poly - c)
+    return poly
+
+
+def _free_slots(alive: np.ndarray, kills: set[int], n_needed: int,
+                n_boundary: int) -> list[int]:
+    free = [i for i in range(len(alive))
+            if (not alive[i] or i in kills) and i >= n_boundary]
+    if len(free) < n_needed:
+        raise RuntimeError(
+            f"floe capacity exhausted: need {n_needed} slots, have "
+            f"{len(free)} (raise CapacityConfig.max_floes)"
+        )
+    return free[:n_needed]
+
+
+
+
+_UPDATE_FIELDS = ("h", "mass", "inertia")
+
+
+def _set_rows(cur: torch.Tensor, slots: torch.Tensor,
+              rows: torch.Tensor) -> torch.Tensor:
+    """A new tensor equal to ``cur`` with rows ``slots`` set to ``rows``
+    (cast to ``cur``'s dtype); ``cur`` itself is not written."""
+    out = cur.clone()
+    out[slots] = rows.to(cur.dtype)
+    return out
+
+
+def _write_updates(state: FloeState, slots, vals, mask, alive):
+    """All scalar-field updates (masked per field) + the alive mask, as
+    indexed writes into new tensors."""
+    upd = {}
+    for i, name in enumerate(_UPDATE_FIELDS):
+        cur = getattr(state, name)
+        new = torch.where(mask[:, i], vals[:, i].to(cur.dtype), cur[slots])
+        upd[name] = _set_rows(cur, slots, new)
+    return state.replace(alive=alive, **upd)
+
+
+def apply_edits(state: FloeState, edit: StateEdit, cfg: SimConfig,
+                seed: int = 0, view: "HostView | None" = None) -> FloeState:
+    """Apply kills / reshapes / updates / births to the device state.
+
+    Edits touch only affected slots, by indexed writes on the state's
+    device into new tensors — no whole-array host copies or re-uploads, and
+    the input state is left as it was.
+
+    ``view``: the HostView the passes ran on.  When provided, the alive
+    mask and reshape kinematics come from it instead of two extra
+    device->host copies."""
+    if edit.empty:
+        return state
+    dev = state.x.device
+    dt = state.x.dtype
+
+    def on_dev(a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    if view is None:
+        alive = state.alive.cpu().numpy().copy()
+    else:
+        # a mid-pass capacity growth (grow_fn) appends dead slots the view
+        # predates: pad with False instead of re-fetching
+        alive = np.concatenate(
+            [view.alive,
+             np.zeros(state.alive.shape[0] - view.n, bool)])
+
+    # -- kills -------------------------------------------------------------
+    for i in edit.kills | edit.dissolve_kills:
+        alive[i] = False
+
+    # -- scalar updates ----------------------------------------------------
+    # The passes only ever update the ridge/raft winner scalars
+    # (_UPDATE_FIELDS); those go through one masked write.  Any other field
+    # takes a per-field indexed write.
+    upd: dict[str, torch.Tensor] = {}
+
+    def scatter(name, slots, vals):
+        base = upd.get(name, getattr(state, name))
+        upd[name] = _set_rows(base, on_dev(slots, torch.long),
+                              on_dev(vals, dt))
+
+    upd_rows = None
+    if edit.updates and all(
+            k in _UPDATE_FIELDS for kv in edit.updates.values()
+            for k in kv):
+        slots_u = sorted(edit.updates)
+        vals_u = np.zeros((len(slots_u), len(_UPDATE_FIELDS)))
+        mask_u = np.zeros((len(slots_u), len(_UPDATE_FIELDS)), bool)
+        for r, slot in enumerate(slots_u):
+            for c, name in enumerate(_UPDATE_FIELDS):
+                if name in edit.updates[slot]:
+                    vals_u[r, c] = edit.updates[slot][name]
+                    mask_u[r, c] = True
+        upd_rows = (on_dev(slots_u, torch.long), on_dev(vals_u, dt),
+                    on_dev(mask_u))
+    else:
+        by_field: dict[str, tuple[list, list]] = {}
+        for slot, kv in edit.updates.items():
+            for k, v in kv.items():
+                sl, vl = by_field.setdefault(k, ([], []))
+                sl.append(slot)
+                vl.append(v)
+        for k, (sl, vl) in by_field.items():
+            scatter(k, sl, vl)
+
+    # -- births (reshapes are births into the same slot) -------------------
+    births: list[tuple[int, NewFloe]] = []
+    reshape_slots = []
+    if edit.reshapes:
+        kin_names = ("u", "v", "ksi", "dx_p", "dy_p", "du_p", "dv_p",
+                     "dksi_p")
+        if view is not None:
+            kin = np.stack([view.fields[k] for k in kin_names], axis=1)
+        else:
+            kin = _pack_kin(state).cpu().numpy()     # ONE device->host copy
+    for slot, (poly, new_mass) in edit.reshapes.items():
+        nf = NewFloe(
+            poly=poly, h=0.0, mass=new_mass,
+            stress_blend=[(slot, 1.0)],
+            **{k: float(kin[slot, i]) for i, k in enumerate(kin_names)},
+        )
+        births.append((slot, nf))
+        reshape_slots.append(slot)
+
+    if edit.new_floes:
+        free = _free_slots(alive, edit.kills | edit.dissolve_kills,
+                           len(edit.new_floes), cfg.n_boundary)
+        births.extend(zip(free, edit.new_floes))
+
+    if not births and not upd and upd_rows is None and not edit.kills \
+            and not edit.dissolve_kills:
+        return state
+
+    if births:
+        slots = [s for s, _ in births]
+        floes = [f for _, f in births]
+        heights = np.array([
+            f.h if f.mass is None else 1.0 for f in floes
+        ])
+        # Polygon surgery (unions/differences) can exceed the vertex
+        # capacity; reduce to the cap conserving area (the reference relies
+        # on unlimited polyshape vertices + periodic FloeSimplify instead).
+        # The truncation bound is max_verts (the fidelity cap); the arrays
+        # are built at the state's current vertex rung, which the driver's
+        # grow_verts_fn has already raised to cover these births (a library
+        # caller without the hook gets capped at the rung instead).
+        vc = min(cfg.capacity.max_verts, state.v_cap)
+        polys = [_cap_vertices(f.poly, vc) for f in floes]
+        arrs = make_floe_arrays(polys, heights, cfg, seed=seed,
+                                v_cap=state.v_cap)
+        if any(f.mass is not None for f in floes):
+            for k, f in enumerate(floes):
+                if f.mass is not None:
+                    area_k = arrs["area"][k]
+                    h_k = f.mass / (cfg.physics.rho_ice * area_k)
+                    arrs["h"][k] = h_k
+                    arrs["mass"][k] = f.mass
+                    arrs["inertia"][k] = arrs["inertia"][k] * h_k  # was h=1
+        # kinematics + AB2 history
+        for name in ("u", "v", "ksi", "dx_p", "dy_p", "du_p", "dv_p",
+                     "dksi_p"):
+            arrs[name] = np.array([getattr(f, name) for f in floes])
+        n_new = len(floes)
+        arrs["alpha"] = np.zeros(n_new)
+        arrs["dalpha_p"] = np.zeros(n_new)
+        arrs["fx_oa"] = np.zeros(n_new)
+        arrs["fy_oa"] = np.zeros(n_new)
+        arrs["tq_oa"] = np.zeros(n_new)
+        arrs["overlap_area"] = np.zeros(n_new)
+        arrs["strain"] = np.stack([
+            f.strain if f.strain is not None else np.zeros(3) for f in floes
+        ])
+        del arrs["alive"]
+
+        for s in slots:
+            alive[s] = True
+
+        # ---- ONE packed write of every birth field ----------------------
+        # (plus the stress ring-history blend): the rows travel to the
+        # device as one [B, F] tensor in the state dtype.
+        sizes = _birth_layout(state)
+        vals = np.zeros((n_new, sum(sz for _, sz in sizes)))
+        off = 0
+        for name, sz in sizes:
+            vals[:, off:off + sz] = \
+                np.asarray(arrs[name]).reshape(n_new, sz)
+            off += sz
+        max_p = max((len(f.stress_blend) for _, f in births), default=0)
+        pidx = np.zeros((n_new, max(max_p, 1)), np.int64)
+        pw = np.zeros((n_new, max(max_p, 1)))
+        for bi, (_, f) in enumerate(births):
+            for pj, (p, w) in enumerate(f.stress_blend):
+                pidx[bi, pj] = p
+                pw[bi, pj] = w
+        if upd:
+            state = state.replace(**upd)  # updates first, births override
+        if upd_rows is not None:
+            state = _write_updates(state, *upd_rows, state.alive)
+        return _write_births(
+            state, on_dev(slots, torch.long), on_dev(vals, dt),
+            on_dev(pidx), on_dev(pw, dt), on_dev(alive))
+
+    # inertia update when h changed without reshape (ridge winner):
+    # reference scales inertia by h_new/h_old (ridge_values_update.m:18),
+    # handled by callers through the updates dict.
+
+    if upd_rows is not None:
+        return _write_updates(state, *upd_rows, on_dev(alive))
+    upd["alive"] = on_dev(alive)
+    return state.replace(**upd)
+
+
+def _birth_layout(state: FloeState) -> list[tuple[str, int]]:
+    """(field, flattened size) for every state field a birth sets — all of
+    them except the stress ring machinery and the alive mask."""
+    out = []
+    for f in dataclasses.fields(state):
+        if f.name in ("stress_hist", "stress", "alive"):
+            continue
+        cur = getattr(state, f.name)
+        out.append((f.name,
+                    int(np.prod(cur.shape[1:])) if cur.ndim > 1 else 1))
+    return out
+
+
+def _write_births(state: FloeState, slots, vals, pidx, pw, alive_new):
+    """Write complete birth rows (packed [B, F]) + the stress-history blend
+    into new tensors; the mean stress is recomputed for every floe."""
+    upd = {}
+    off = 0
+    for name, sz in _birth_layout(state):
+        cur = getattr(state, name)
+        chunk = vals[:, off:off + sz].reshape(
+            (vals.shape[0],) + tuple(cur.shape[1:]))
+        upd[name] = _set_rows(cur, slots, chunk)
+        off += sz
+    hist = state.stress_hist
+    rows = torch.einsum("bp,bpwc->bwc", pw.to(hist.dtype), hist[pidx])
+    hist = _set_rows(hist, slots, rows)
+    upd["stress_hist"] = hist
+    upd["stress"] = torch.mean(hist, dim=1)
+    upd["alive"] = alive_new
+    return state.replace(**upd)
