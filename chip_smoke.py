@@ -82,6 +82,28 @@ prints no result):
    the reference's known updated-winner leak (ROADMAP §C), reaches 1e-6 of
    the live mass, if corners, simplify, weld, ridge/raft or fracture never
    ran, or if a chunk was committed with a pool overflow.
+7. The single-device remainder.  (a) The segment-midpoint clip
+   (``overlap_stats_bm``, ``difference_stats_bm`` and the vmapped
+   ``overlap_stats``; plain PyTorch on both devices), CUDA against CPU in
+   float64 on phase 2's seeded pairs at 81,920x16x16 and 10,240x16x8 and
+   the degenerate squares (the vmapped form against the CPU batch-minor
+   overlap, which it equals within 1e-12 on the CPU): area, centroid and
+   chord within 1e-9 of their scale, n_cross equal.  (b) The walled 256-quad lattice under
+   ``contact_impl="xla"``, CPU against CUDA in float64 for 20 steps, as in
+   phase 3, with no kernel launch.  (c) Phase 4's aggregate periodic
+   10,240-quad lattice under ``contact_impl="xla"`` in float32, one
+   warm-up and 30 timed steps: floe-steps/s, phase times and peak memory
+   beside the "integral" run; the kernel's launch counter must read 0.
+   (d) The CUDA step in float64 on the default "integral" route (the
+   kernel, two launches a walled step) in lockstep with the serial oracle
+   (``subzero_tpu_torch.oracle``) on test_golden.py's head-on blocks (400
+   steps, cut from 1,200: the collision is over by step 300), complex
+   concave floes with per-region contacts (2600) and 10-floe out-of-box
+   gyre (500), at that file's check cadences and
+   tolerances, kinetic energy dissipated in the two collisions; the
+   oracle's floe-steps/s on the host beside the CUDA step's.  (e) If
+   matplotlib imports, ``plot_basic`` of (d)'s end state (host copies) to
+   a temporary PNG; otherwise one line saying no figure was drawn.
 
 Earlier lines report build time; at each timed shape the kernel's time per
 wrapper call (host launch cost included, as the record's ``ms``), its card
@@ -90,16 +112,19 @@ and the bound with the kernel's share of it; per run floe-steps/s,
 per-phase CUDA-event times, peak memory, the region-pool sizes and the
 largest region-pool demand.  The line before last holds the card's name
 and power limit; before it, one JSON object with the kernel's record, its
-``launches`` summed over the seven phase-4 runs and the phase-6 run.  The
-last line is ``{"ok": true, "device": {...}}``.
+``launches`` summed over the seven phase-4 runs, the phase-6 run and the
+three phase-7 (d) runs.  The last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -544,7 +569,8 @@ def lockstep(label, polys, vel, lx, cfg, steps, need_regions=False):
     (plain clip) and ``device="cuda"`` (kernel) from the same numpy inputs:
     positions within 1e-6 m, velocities within 1e-9 m/s, and the same
     collision count, region-pool demand and overflow flags every step; one
-    kernel launch per periodic step, two per walled step, on CUDA only."""
+    kernel launch per periodic step, two per walled step, on CUDA only, and
+    none under ``contact_impl="xla"`` (the segment-midpoint clip)."""
     import torch
 
     from subzero_tpu_torch.convert import state_to_numpy, state_from_numpy
@@ -574,7 +600,8 @@ def lockstep(label, polys, vel, lx, cfg, steps, need_regions=False):
         runs[dev] = (traj, counts, walls, kclip.clip_stats_cuda.launches)
     (tc, cc, wc, lc), (tg, cg, wg, lg) = runs["cpu"], runs["cuda"]
     periodic = cfg.processes.periodic
-    want = steps * (1 if periodic else 2)
+    want = (0 if cfg.numerics.contact_impl == "xla"
+            else steps * (1 if periodic else 2))
     if lc != 0 or lg != want:
         raise AssertionError(f"{label}: kernel launches cpu={lc} cuda={lg}, "
                              f"expected 0 and {want}")
@@ -805,6 +832,7 @@ def phase_main_path(kernel_record):
     torch.cuda.empty_cache()
 
     total = 0
+    results = {}
     for label, st0, fc, cfg in runs:
         periodic = cfg.processes.periodic
         torch.cuda.reset_peak_memory_stats()
@@ -812,11 +840,13 @@ def phase_main_path(kernel_record):
         want = (STEPS + 1) * (1 if periodic else 2)
         pools = (region_pool_slots(cfg) if cfg.contact.per_region
                  else "off")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        results[label] = (rate, phase, peak)
         log(f"[main] {label}: {rate:.1f} floe-steps/s over {STEPS} steps; "
             f"per step (CUDA events, ms): "
             + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
             + f"; clip launches {launches} (expected {want}); "
-            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"peak memory {peak:.2f} "
             f"GiB; region pool slots (floe, wall) {pools}, "
             f"max region_pool_need {most['region_pool_need']}, "
             f"region_overflow {bool(most['region_overflow'])}")
@@ -842,6 +872,7 @@ def phase_main_path(kernel_record):
         total += launches
     kernel_record["launches"] = total
     phase_sync_check(stars_end, cfg_s, cfg_pool, slx)
+    return runs, results
 
 
 def phase_sync_check(state, cfg_region, cfg_pool, lx):
@@ -1138,7 +1169,6 @@ def sim_lockstep(label, build, steps, save_at=None, check_ledger=False):
 
 def phase_sim_parity():
     """Phase 5: the validation runs, CPU against CUDA in float64."""
-    import dataclasses
 
     import subzero_tpu_torch.validation as tval
     from subzero_tpu_torch.sim import out_of_box_sim
@@ -1397,6 +1427,305 @@ def phase_big_run(kernel_record):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the single-device remainder (segment-midpoint clip, the "xla"
+# contact route, the serial oracle, plotting)
+# ---------------------------------------------------------------------------
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+SQ1 = np.array([[2, 2], [5, 2], [5, 5], [2, 5]], float) * 1e4
+SQ2 = np.array([[6, 2], [9, 2], [9, 5], [6, 5]], float) * 1e4
+
+
+def complex_floe(n, translate=(0.0, 0.0), max_v=60):
+    """conservation_test.m's concave fixture floe poly(n) (FloeShapes.mat,
+    extracted to tests/fixtures/), Douglas-Peucker'd under the vertex cap;
+    CCW order."""
+    from subzero_tpu_torch.processes.simplify import douglas_peucker
+
+    poly = np.load(FIXTURES / f"floeshapes_poly{n}.npy")
+    poly = poly[~np.isnan(poly).any(axis=1)]
+    tol = 10.0
+    simp = douglas_peucker(poly, tol)
+    while len(simp) > max_v:
+        tol *= 1.5
+        simp = douglas_peucker(poly, tol)
+    x, y = simp[:, 0], simp[:, 1]
+    if np.sum(x * np.roll(y, -1) - np.roll(x, -1) * y) < 0:
+        simp = simp[::-1]
+    return simp + np.asarray(translate)
+
+
+def golden_modulus(polys):
+    """Subzero.m:77 (exactly 9e7 for the two-block scenarios)."""
+    from subzero_tpu_torch.oracle import _poly_area
+
+    r = np.array([np.sqrt(_poly_area(np.asarray(p))) for p in polys])
+    return float(1.5e3 * (r.mean() + r.min()))
+
+
+def gyre_floes():
+    """The out-of-box golden scenario's floes: ~10 Voronoi floes at 0.4
+    concentration (seed 3), those of at most 30 vertices."""
+    from subzero_tpu_torch.config import SimConfig
+    from subzero_tpu_torch.init import voronoi_floe_field
+
+    polys, _ = voronoi_floe_field(SimConfig(), target_concentration=0.4,
+                                  n_floes=10, height_mean=0.25, seed=3)
+    return [p for p in polys if len(p) <= 30]
+
+
+def golden_config(n_floes, max_verts=64, ocean=False, contact=None):
+    """The golden scenarios' configuration (float64, walled, corners off)."""
+    from subzero_tpu_torch.config import (
+        CapacityConfig, ContactConfig, NumericsConfig, PhysicsConfig,
+        ProcessConfig, SimConfig,
+    )
+
+    return SimConfig(
+        physics=PhysicsConfig(ocean_coupling=ocean),
+        processes=ProcessConfig(collision=True, corners=False),
+        numerics=NumericsConfig(dtype="float64"),
+        capacity=CapacityConfig(max_floes=max(8, n_floes), max_neighbors=8,
+                                max_verts=max_verts),
+        **({} if contact is None else {"contact": ContactConfig(**contact)}))
+
+
+def golden_lockstep(polys, vels, n_steps, device, check_every=50,
+                    max_verts=64, forcing=None, ocean=False, contact=None):
+    """The physics step (``make_step_fn`` on ``device``, float64) in lockstep
+    with the serial oracle (``subzero_tpu_torch.oracle``), as the golden
+    scenarios run them: kinetic energy of the oracle every step, position
+    and velocity gaps of the floes the oracle keeps alive every
+    ``check_every`` steps.  Returns the gaps, the energy series, both end
+    states, the clip kernel's launches and the seconds spent in each."""
+    import torch
+
+    from subzero_tpu_torch.dynamics.step import make_step_fn
+    from subzero_tpu_torch.forcing import uniform_forcing
+    from subzero_tpu_torch.kernels import clip as kclip
+    from subzero_tpu_torch.oracle import (
+        floes_from_state, kinetic_energy, oracle_step,
+    )
+    from subzero_tpu_torch.state import state_from_polygons
+
+    cfg = golden_config(len(polys), max_verts, ocean, contact)
+    modulus = golden_modulus(polys)
+    st = state_from_polygons(polys, 0.25, cfg, seed=0,
+                             velocities=np.asarray(vels), device=device)
+    floes = floes_from_state(st, cfg, n=len(polys))
+    if forcing is None:
+        forcing = uniform_forcing(lx=4e5, dx=1e4, device="cpu")
+    step = make_step_fn(cfg, forcing, modulus, device=device)
+    sync = torch.cuda.synchronize if st.device.type == "cuda" else (
+        lambda: None)
+
+    k_series = [kinetic_energy(floes)]
+    max_dx = max_du = t_step = t_oracle = 0.0
+    n = len(polys)
+    kclip.clip_stats_cuda.launches = 0
+    for s in range(n_steps):
+        t0 = time.perf_counter()
+        st, _ = step(st, s)
+        sync()
+        t1 = time.perf_counter()
+        oracle_step(floes, forcing, cfg, modulus, s)
+        t_oracle += time.perf_counter() - t1
+        t_step += t1 - t0
+        k_series.append(kinetic_energy(floes))
+        if s % check_every == check_every - 1 or s == n_steps - 1:
+            got = {k: getattr(st, k)[:n].cpu().numpy()
+                   for k in ("x", "y", "u", "v")}
+            for i, f in enumerate(floes):
+                if f.alive:
+                    max_dx = max(max_dx, abs(got["x"][i] - f.x),
+                                 abs(got["y"][i] - f.y))
+                    max_du = max(max_du, abs(got["u"][i] - f.u),
+                                 abs(got["v"][i] - f.v))
+    launches = kclip.clip_stats_cuda.launches
+    m, u, v, inertia, ksi = (getattr(st, k)[:n].cpu().numpy() for k in (
+        "mass", "u", "v", "inertia", "ksi"))
+    k_step = float(np.sum(0.5 * m * (u ** 2 + v ** 2)
+                          + 0.5 * inertia * ksi ** 2))
+    return dict(k=np.array(k_series), k_end_step=k_step, max_dx=max_dx,
+                max_du=max_du, state=st, floes=floes, cfg=cfg,
+                launches=launches, t_step=t_step, t_oracle=t_oracle)
+
+
+def assert_dissipation(r, where):
+    """conservation_test.m's K(end)/K(1) < 1, and K never above K0, for the
+    oracle; K(end)/K(1) < 1 for the step."""
+    k = r["k"]
+    if not (k[-1] / k[0] < 1.0 and k.max() / k[0] < 1.0 + 1e-9
+            and r["k_end_step"] / k[0] < 1.0):
+        raise AssertionError(f"{where}: kinetic energy was not dissipated")
+
+
+def golden_scenarios():
+    """(label, polys, velocities, steps, lockstep kwargs, max |d pos| m,
+    max |d vel| m/s, energy dissipated) — test_golden.py's head-on blocks,
+    complex concave floes with per-region contacts and out-of-box gyre
+    scenarios at their check cadences and tolerances.  Depths are
+    test_golden.py's but for the head-on blocks, cut from 1,200 steps to
+    400 to keep phase 7 near its time budget: they touch at step ~200 and
+    part by step 300 (their kinetic energy is the same at 300 and 1,200)."""
+    from subzero_tpu_torch.forcing import gyre_ocean
+
+    gyre = gyre_floes()
+    return [
+        ("head-on blocks", [SQ1, SQ2 - [9.5e3, 0]],
+         [[0.15, 0.02], [-0.1, 0.02]], 400, {}, 1e-5, 1e-9, True),
+        ("complex concave floes, per-region",
+         [complex_floe(5), complex_floe(4, translate=(-1e4 + 1.2e3, -4e4))],
+         [[-0.11, 0.02], [0.1, 0.02]], 2600,
+         dict(contact=dict(per_region=True, region_cap=16)), 1e-6, 1e-9,
+         True),
+        ("out-of-box gyre", gyre, np.zeros((len(gyre), 2)), 500,
+         dict(check_every=25, max_verts=32, ocean=True,
+              forcing=gyre_ocean(lx=4e5, dx=1e4, dtype="float64",
+                                 device="cpu")), 0.1, 1e-3, False),
+    ]
+
+
+def phase_clip_midpoint():
+    """Phase 7(a): the segment-midpoint clip, CUDA against CPU in float64."""
+    import torch
+
+    from subzero_tpu_torch.geometry.clip import overlap_stats
+    from subzero_tpu_torch.geometry.clip_batched import (
+        difference_stats_bm, overlap_stats_bm,
+    )
+
+    cases = [(f"B={b} Vp={vp} Vq={vq}", *random_pairs(b, vp, vq,
+                                                      seed=b + vp + vq))
+             for b, vp, vq in ((81920, 16, 16), (10240, 16, 8))]
+    cases.append(("degenerate B=8 Vp=Vq=16", *degenerate_pairs()))
+    # (name, function, the CPU reference it is held to: the vmapped form
+    # to the CPU batch-minor overlap, which equals the CPU vmapped one
+    # within 1e-12 (tests/test_torch_geometry.py) and saves the slowest
+    # CPU call)
+    fns = (("overlap_stats_bm", overlap_stats_bm, None),
+           ("difference_stats_bm", difference_stats_bm, None),
+           ("overlap_stats (vmapped)", overlap_stats, "overlap_stats_bm"))
+    for label, p_np, q_np in cases:
+        p, q = torch.from_numpy(p_np), torch.from_numpy(q_np)
+        pg, qg = p.cuda(), q.cuda()
+        cpu = {}
+        for name, fn, ref in fns:
+            t0 = time.perf_counter()
+            want = cpu[name] = cpu[ref] if ref else fn(p, q)
+            t_cpu = time.perf_counter() - t0
+            ms = cuda_ms(lambda: fn(pg, qg), reps=3, warmup=1)
+            got = fn(pg, qg)
+            gaps = []
+            for k in ("area", "centroid", "chord_p"):
+                a, b = getattr(got, k).cpu(), getattr(want, k)
+                gap = float((a - b).abs().max())
+                gaps.append(gap)
+                if gap > 1e-9 * max(float(b.abs().max()), 1.0):
+                    raise AssertionError(f"{name} {label}: CUDA and CPU "
+                                         f"differ in {k} by {gap}")
+            bad = int((got.n_cross.cpu() != want.n_cross).sum())
+            if bad:
+                raise AssertionError(f"{name} {label}: {bad} n_cross "
+                                     f"mismatches")
+            log(f"[clip7] {name:24s} {label:24s} f64 CUDA vs CPU"
+                + (f" {ref}" if ref else "") + f": max|d area| "
+                f"{gaps[0]:.3e}  max|d centroid| {gaps[1]:.3e}  max|d "
+                f"chord| {gaps[2]:.3e}  n_cross equal; CUDA {ms:.3f} ms"
+                + ("" if ref else f", CPU {t_cpu * 1e3:.1f} ms"))
+        del pg, qg
+    torch.cuda.empty_cache()
+
+
+def phase_remainder(runs, results, kernel_record):
+    """Phase 7: the single-device remainder of the port on the card."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    phase_clip_midpoint()
+    t_a = time.perf_counter()
+
+    # (b) the "xla" route, CPU against CUDA in float64
+    polys, vel, lx = lattice(256, seed=1)
+    lockstep('256 quads walled, contact_impl="xla"', polys, vel, lx,
+             lattice_config(256, lx, periodic=False, dtype="float64",
+                            n_mc=64, window=16,
+                            numerics=dict(contact_impl="xla")), 20)
+    t_b = time.perf_counter()
+
+    # (c) the "xla" route on the aggregate periodic quad lattice, float32
+    label, quads, forcing, cfg = runs[0]
+    cfg = cfg.replace(numerics=dataclasses.replace(cfg.numerics,
+                                                   contact_impl="xla"))
+    torch.cuda.reset_peak_memory_stats()
+    launches, rate, phase, s, aux, _ = run_main_path(quads, cfg, forcing)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    r_int, p_int, m_int = results[label]
+    log(f'[xla] {label}, contact_impl="xla": {rate:.1f} floe-steps/s over '
+        f"{STEPS} steps; per step (CUDA events, ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
+        + f"; peak memory {peak:.2f} GiB; clip launches {launches}")
+    log(f'[xla] {label}, contact_impl="integral" (phase 4): {r_int:.1f} '
+        f"floe-steps/s; per step (CUDA events, ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in p_int.items())
+        + f"; peak memory {m_int:.2f} GiB")
+    if launches != 0:
+        raise AssertionError(f'contact_impl="xla" launched the clip kernel '
+                             f"{launches} times")
+    if int(aux.n_collisions) == 0 or not bool(torch.isfinite(s.x).all()):
+        raise AssertionError('contact_impl="xla": implausible end state')
+    t_c = time.perf_counter()
+
+    # (d) the CUDA step (clip kernel) in lockstep with the serial oracle
+    total = 0
+    end = None
+    for label, polys, vels, steps, kw, tol_x, tol_u, dissipates in \
+            golden_scenarios():
+        r = golden_lockstep(polys, vels, steps, "cuda", **kw)
+        n = len(polys)
+        log(f"[oracle] {label}, {n} floes, {steps} steps: max|d pos| "
+            f"{r['max_dx']:.3e} m (tol {tol_x}), max|d vel| "
+            f"{r['max_du']:.3e} m/s (tol {tol_u}); K end oracle "
+            f"{r['k'][-1]:.6e} J, step {r['k_end_step']:.6e} J, K0 "
+            f"{r['k'][0]:.6e} J; clip launches "
+            f"{r['launches']}; oracle {n * steps / r['t_oracle']:.1f} "
+            f"floe-steps/s on the host, CUDA step "
+            f"{n * steps / r['t_step']:.1f} floe-steps/s")
+        if r["launches"] != 2 * steps:
+            raise AssertionError(f"{label}: {r['launches']} clip launches, "
+                                 f"expected 2 per (walled) step")
+        if r["max_dx"] >= tol_x or r["max_du"] >= tol_u:
+            raise AssertionError(f"{label}: the CUDA step left the oracle's "
+                                 f"trajectory")
+        if dissipates:
+            assert_dissipation(r, label)
+        total += r["launches"]
+        end = r
+    kernel_record["launches"] += total
+    t_d = time.perf_counter()
+
+    # (e) a figure of (d)'s end state, drawn from host copies
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        log("[plot] this machine has no matplotlib, so no figure was drawn")
+    else:
+        from subzero_tpu_torch.plotting import plot_basic
+
+        with tempfile.TemporaryDirectory() as d:
+            path = Path(d) / "golden_end.png"
+            plot_basic(end["state"], end["cfg"], path=str(path),
+                       color_by="speed")
+            log(f"[plot] plot_basic of the gyre scenario's end state: "
+                f"{path.stat().st_size} B")
+    log(f"[phase7] (a) {t_a - t_phase:.1f} s, (b) {t_b - t_a:.1f} s, (c) "
+        f"{t_c - t_b:.1f} s, (d) {t_d - t_c:.1f} s, (e) "
+        f"{time.perf_counter() - t_d:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1425,10 +1754,11 @@ def main() -> int:
         "replaces": "subzero_tpu/geometry/clip_pallas.py:125",
         "library_ms": None,
     }
-    phase_main_path(record)
+    runs, results = phase_main_path(record)
     record["max_abs_err"] = max(record["max_abs_err"], worst)
     phase_sim_parity()
     phase_big_run(record)
+    phase_remainder(runs, results, record)
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches",

@@ -36,26 +36,25 @@ from typing import NamedTuple
 import torch
 
 from ..config import SimConfig
+from ..geometry.clip_batched import difference_stats_bm, overlap_stats_bm
 from ..geometry.regions import region_stats, reverse_polygons
 from ..kernels.clip import difference_stats, overlap_stats
 from .broadphase import NeighborTable
 
 
-def check_supported(cfg: SimConfig):
-    """Raise NotImplementedError for the options this port lacks so far."""
-    if cfg.numerics.contact_impl == "xla":
-        raise NotImplementedError(
-            "contact_impl='xla' (segment-midpoint clip) is not ported yet "
-            "(ROADMAP A11); 'integral' and 'pallas' both select the "
-            "parity-integral clip")
-
-
 def _clip_fns(cfg: SimConfig):
-    """(overlap, difference) clip functions.  "integral" and "pallas" name
-    one math: the wrappers launch the CUDA kernel on CUDA tensors and run
-    the plain PyTorch version on CPU tensors.  No config value routes a
-    CUDA tensor to the plain version."""
-    check_supported(cfg)
+    """(overlap, difference) clip functions per cfg.numerics.contact_impl.
+
+    "integral" (default) and "pallas" name one math, the parity-integral
+    clip: the wrappers launch the CUDA kernel on CUDA tensors and run the
+    plain PyTorch version on CPU tensors.  No config value routes a CUDA
+    tensor to the plain parity-integral version.
+    "xla": the segment-midpoint clip in its batch-minor layout
+    (geometry/clip_batched.py), plain PyTorch on both devices, as it is XLA
+    code in the JAX package.
+    """
+    if cfg.numerics.contact_impl == "xla":
+        return overlap_stats_bm, difference_stats_bm
     return overlap_stats, difference_stats
 
 

@@ -23,8 +23,7 @@ from ..geometry.polygon import pad_polygon
 from ..state import FloeState, torch_dtype
 from .broadphase import neighbor_candidates, neighbor_candidates_cells
 from .contact import (
-    BoundaryContact, PairContacts, boundary_contact, check_supported,
-    contact_forces,
+    BoundaryContact, PairContacts, boundary_contact, contact_forces,
 )
 from .trajectory import push_stress, stress_from_sums, trajectory_update
 
@@ -84,7 +83,6 @@ def physics_step(
     phase ("broadphase", "contact", "wall", "trajectory") and with "end";
     the caller may record CUDA events there.
     """
-    check_supported(cfg)
     mark = timer or (lambda name: None)
     proc = cfg.processes
     periodic = proc.periodic
@@ -265,11 +263,10 @@ def make_step_fn(cfg: SimConfig, forcing: Forcing, modulus: float,
 
     ``device=None`` means CUDA and raises if CUDA is absent; pass
     ``device="cpu"`` for the plain PyTorch path.  Every contact and
-    broad-phase option of the JAX step runs, except
-    ``contact_impl="xla"``, which raises NotImplementedError here.  The
-    forcing grids and the domain polygon are moved to the device once.
+    broad-phase option of the JAX step runs, ``contact_impl="xla"``
+    included.  The forcing grids and the domain polygon are moved to the
+    device once.
     """
-    check_supported(cfg)
     dev = resolve_device(device)
     forcing = forcing.to(device=dev)
     domain_verts = domain_polygon(cfg, device=dev)

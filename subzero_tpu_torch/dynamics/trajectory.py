@@ -29,6 +29,25 @@ def stress_from_sums(state: FloeState, sxx, syy, sxy) -> torch.Tensor:
     return torch.stack([sxx, syy, sxy], dim=-1) * inv[:, None]
 
 
+def floe_stress(state: FloeState, cf_x, cf_y, px, py, f_valid) -> torch.Tensor:
+    """Virial contact stress per floe, [N, 3] (xx, yy, xy), from per-contact
+    forces and points.
+
+    cf_x/cf_y/px/py: [N, K] per-contact forces and contact points;
+    f_valid: [N, K] contact mask.  Mirrors calc_trajectory.m:9-13, which
+    forms (sym of) Σ (p - r) ⊗ F over the interaction list.
+    """
+    rx = px - state.x[:, None]
+    ry = py - state.y[:, None]
+    w = f_valid.to(cf_x.dtype)
+    sxx = torch.sum(w * rx * cf_x, dim=1)
+    syy = torch.sum(w * ry * cf_y, dim=1)
+    sxy = torch.sum(w * 0.5 * (rx * cf_y + ry * cf_x), dim=1)
+    denom = 2.0 * state.area * state.h
+    # The symmetrized sum doubles the diagonal and averages the off-diagonal.
+    return torch.stack([sxx, syy, sxy], dim=-1) * (2.0 / denom)[:, None]
+
+
 def push_stress(state: FloeState, stress_new: torch.Tensor, step: int):
     """Write this step's stress into the ring buffer and update the mean.
 

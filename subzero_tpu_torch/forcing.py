@@ -2,9 +2,7 @@
 
 Port of ``subzero_tpu/forcing.py``.  The forcing lives on a regular grid and
 is sampled with bilinear interpolation (the reference uses ``interp2`` at
-``calc_trajectory.m:134-137``).  The JAX package's ``interp_bilinear_mxu``
-exists only to turn the gather into TPU matrix products; here every field is
-sampled by the plain gather of ``interp_bilinear``.
+``calc_trajectory.m:134-137``) by the plain gather of ``interp_bilinear``.
 """
 
 from __future__ import annotations
@@ -17,8 +15,8 @@ import torch
 from .device import resolve_device
 from .state import torch_dtype
 
-__all__ = ["Forcing", "interp_bilinear", "sample_forcing", "gyre_ocean",
-           "uniform_forcing", "thermo_params"]
+__all__ = ["Forcing", "interp_bilinear", "interp_bilinear_mxu",
+           "sample_forcing", "gyre_ocean", "uniform_forcing", "thermo_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +85,25 @@ def interp_bilinear(field: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
         + f10 * ty * (1 - tx)
         + f11 * ty * tx
     )
+
+
+def interp_bilinear_mxu(fields: torch.Tensor, fx: torch.Tensor,
+                        fy: torch.Tensor, x0, y0, dx,
+                        chunk: int = 65536) -> torch.Tensor:
+    """Bilinear sample of ``fields[C, Ny, Nx]`` at flat points [P] -> [C, P],
+    with the JAX package's signature and values.
+
+    The JAX version contracts two one-hot weight matrices with the fields
+    as matrix products over point chunks of ``chunk``, because a gather is
+    slow on a TPU and its matrix unit is not: a TPU layout trick.  A GPU
+    gathers at memory speed, and the one-hot matmuls would read Ny + Nx
+    weights per point where the gather reads four values; so here it is
+    the plain gather of ``interp_bilinear`` per field, and ``chunk`` has no
+    effect.
+    """
+    px, py = fx.reshape(-1), fy.reshape(-1)
+    return torch.stack([interp_bilinear(f, px, py, x0, y0, dx)
+                        for f in fields])
 
 
 def sample_forcing(forcing: Forcing, px: torch.Tensor, py: torch.Tensor):

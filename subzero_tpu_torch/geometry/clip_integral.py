@@ -33,6 +33,7 @@ __all__ = [
     "eps_scale",
     "overlap_stats_int",
     "difference_stats_int",
+    "indicator_integrals_bm",
     "clip_integral_bm",
 ]
 
@@ -51,6 +52,55 @@ def _inv_len(elen2: torch.Tensor) -> torch.Tensor:
     one = torch.ones_like(elen2)
     return torch.where(pos, one / torch.sqrt(torch.where(pos, elen2, one)),
                        torch.zeros_like(elen2))
+
+
+def indicator_integrals_bm(px0, py0, dx, dy, qx0, qy0, dqx, dqy, eps):
+    """Per-edge inside-Q indicator integrals (I0, I1), each ``[Vp, B]``.
+
+    P edges as start ``(px0, py0)`` + direction ``(dx, dy)``, all ``[Vp, B]``;
+    Q edges likewise ``[Vq, B]``; eps ``[B]`` (or scalar) nudge magnitude.
+    Padded zero-length edges (d == 0 or dq == 0) contribute nothing.
+
+    Standalone single-side variant kept for tests and as a reference; the
+    fused two-side path used by ``clip_integral_bm`` is
+    ``_both_side_integrals``.
+    """
+    denom = dx[:, None] * dqy[None] - dy[:, None] * dqx[None]   # [Vp, Vq, B]
+    live = torch.abs(denom) > 0
+    one = torch.ones_like(denom)
+    inv_denom = one / torch.where(live, denom, one)
+    delta = -torch.sign(denom)
+
+    elen2 = dx * dx + dy * dy                                   # [Vp, B]
+    inv_len = _inv_len(elen2)
+
+    relx = qx0[None] - px0[:, None]                             # [Vp, Vq, B]
+    rely = qy0[None] - py0[:, None]
+    t0 = (relx * dqy[None] - rely * dqx[None]) * inv_denom
+    s0 = (relx * dy[:, None] - rely * dx[:, None]) * inv_denom
+    # exact offset corrections (linear in the carrier-line offset)
+    ddq = dx[:, None] * dqx[None] + dy[:, None] * dqy[None]     # dot(d, dq)
+    ct = ddq * (eps * inv_len)[:, None] * inv_denom
+    cs = (eps * elen2 * inv_len)[:, None] * inv_denom
+
+    zero = torch.zeros_like(denom)
+    i0 = i1 = 0.0
+    for sgn in (1.0, -1.0):
+        t = t0 - sgn * ct
+        s = s0 - sgn * cs
+        # Half-open [0, 1) on s: a carrier line through a Q vertex flips
+        # parity exactly once (on the succeeding Q edge).
+        valid = live & (s >= 0) & (s < 1)
+        tc = torch.clamp(t, 0.0, 1.0)
+        w = torch.where(valid, delta, zero)
+        i0 = i0 + torch.sum(w * (1.0 - tc), dim=1)              # [Vp, B]
+        i1 = i1 + torch.sum(w * (1.0 - tc * tc), dim=1)
+    # Parity guards: exact values satisfy 0 <= I1 <= 1/2, I0 in [0, 1]; a
+    # roundoff-corrupted parity chain lands outside, and the clamp bounds
+    # its damage.
+    i0 = torch.clamp(0.5 * i0, 0.0, 1.0)
+    i1 = torch.clamp(0.25 * i1, 0.0, 0.5)
+    return i0, i1
 
 
 def _both_side_integrals(px0, py0, dx, dy, qx0, qy0, dqx, dqy, eps):

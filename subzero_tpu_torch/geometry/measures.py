@@ -1,16 +1,79 @@
-"""Host-side polygon measures.
+"""Polygon measures completing the reference's polygon library — port of
+``subzero_tpu/geometry/measures.py``:
 
-The port's copy of ``cut_polygon`` from ``subzero_tpu/geometry/measures.py``
-(the new-ice packing's topography splits need it).  The batched measures of
-that module (``segment_intersections``, ``point_poly_dist``) are not ported
-yet (ROADMAP A11).
+* ``segment_intersections`` — curve-curve intersection points, the
+  ``collisions/InterX.m`` equivalent (the contact path uses crossing counts;
+  this returns the points).
+* ``point_poly_dist``       — signed minimum distance from points to a
+  polygon boundary, the ``polygon_operations/p_poly_dist.m`` equivalent
+  (negative inside).
+* ``cut_polygon``           — split a polygon by a line and keep one side,
+  the ``polygon_operations/cutpolygon.m`` equivalent (host-side numpy; the
+  new-ice packing's topography splits use it).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["cut_polygon"]
+from .polygon import points_in_polygon, poly_edges
+
+__all__ = ["segment_intersections", "point_poly_dist", "cut_polygon"]
+
+
+def segment_intersections(p: torch.Tensor, q: torch.Tensor, max_points: int):
+    """Intersection points of two padded closed polylines (InterX.m).
+
+    p: [Vp, 2], q: [Vq, 2] padded CCW polygons.  Returns (points
+    [max_points, 2], valid [max_points], count) with the first ``count``
+    slots holding real crossings in edge order (half-open edge rule, each
+    crossing once).
+    """
+    p0, p1 = poly_edges(p)
+    q0, q1 = poly_edges(q)
+    dp = p1 - p0
+    dq = q1 - q0
+    rel = q0[None, :, :] - p0[:, None, :]
+    denom = dp[:, None, 0] * dq[None, :, 1] - dp[:, None, 1] * dq[None, :, 0]
+    live = torch.abs(denom) > 0
+    safe = torch.where(live, denom, torch.ones_like(denom))
+    t = (rel[..., 0] * dq[None, :, 1] - rel[..., 1] * dq[None, :, 0]) / safe
+    s = (rel[..., 0] * dp[:, None, 1] - rel[..., 1] * dp[:, None, 0]) / safe
+    valid = live & (t >= 0) & (t < 1) & (s >= 0) & (s < 1)
+    pts = p0[:, None, :] + t[..., None] * dp[:, None, :]
+
+    flat_valid = valid.reshape(-1)
+    flat_pts = pts.reshape(-1, 2)
+    # a stable sort of the invalid flags keeps the valid slots in order
+    order = torch.argsort((~flat_valid).to(torch.int8), stable=True)
+    idx = order[:max_points]
+    out_valid = flat_valid[idx]
+    out_pts = torch.where(out_valid[:, None], flat_pts[idx],
+                          torch.zeros_like(flat_pts[idx]))
+    return out_pts, out_valid, torch.sum(valid.to(torch.int32),
+                                         dtype=torch.int32)
+
+
+def point_poly_dist(points: torch.Tensor, verts: torch.Tensor,
+                    nv: torch.Tensor | None = None) -> torch.Tensor:
+    """Signed min distance from ``points [P, 2]`` to the boundary of the
+    padded polygon ``verts [V, 2]`` — negative inside (p_poly_dist.m
+    convention).  Padded (zero-length) edges reduce to vertex distances,
+    so ``nv`` is not needed (kept for the JAX signature)."""
+    p0, p1 = poly_edges(verts)
+    d = p1 - p0                                   # [V, 2]
+    len2 = torch.sum(d * d, dim=-1)               # [V]
+    rel = points[:, None, :] - p0[None, :, :]     # [P, V, 2]
+    t = torch.sum(rel * d[None], dim=-1) / torch.where(
+        len2 > 0, len2, torch.ones_like(len2))
+    t = torch.clamp(t, 0.0, 1.0)
+    t = torch.where(len2[None] > 0, t, torch.zeros_like(t))
+    closest = p0[None] + t[..., None] * d[None]
+    dist = torch.sqrt(torch.sum((points[:, None, :] - closest) ** 2, dim=-1))
+    dmin = torch.amin(dist, dim=-1)
+    inside = points_in_polygon(points, verts)
+    return torch.where(inside, -dmin, dmin)
 
 
 def cut_polygon(poly: np.ndarray, line_p0, line_p1, side: int) -> np.ndarray:

@@ -9,16 +9,22 @@ which contribute nothing to any boundary integral.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 __all__ = [
     "pad_polygon",
     "pad_polygons",
+    "apply_padding",
     "poly_edges",
     "poly_area",
     "poly_centroid",
     "poly_moments",
+    "poly_inertia_z",
+    "poly_rmax",
+    "poly_angles",
     "points_in_polygon",
 ]
 
@@ -59,6 +65,17 @@ def pad_polygons(polys: list[np.ndarray], v_max: int) -> tuple[np.ndarray, np.nd
     for i, p in enumerate(polys):
         out[i], nv[i] = pad_polygon(p, v_max)
     return out, nv
+
+
+def apply_padding(verts: torch.Tensor, nv: torch.Tensor) -> torch.Tensor:
+    """Re-apply the pad-with-first-vertex convention on the device.
+
+    ``verts[..., V, 2]``, ``nv[...]`` -> padded verts (slots ``nv:`` set to
+    vertex 0).
+    """
+    idx = torch.arange(verts.shape[-2], device=verts.device)
+    mask = idx < nv[..., None]
+    return torch.where(mask[..., None], verts, verts[..., 0:1, :])
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +126,43 @@ def poly_moments(verts: torch.Tensor) -> dict[str, torch.Tensor]:
     iyy = torch.sum(w * ((x0 + x1) ** 2 - x0 * x1), dim=-1) / 12.0
     ixy = torch.sum(w * ((x0 + x1) * (y0 + y1) + x0 * y0 + x1 * y1), dim=-1) / 24.0
     return {"area": area, "max": max_, "may": may_, "ixx": ixx, "iyy": iyy, "ixy": ixy}
+
+
+def poly_inertia_z(verts: torch.Tensor, h: torch.Tensor,
+                   rho_ice: float = 920.0) -> torch.Tensor:
+    """Polar moment of inertia ``Izz = |Ixx+Iyy| * h * rho_ice``
+    (PolygonMoments.m:29-32); ``verts`` in the body frame (relative to the
+    centroid)."""
+    m = poly_moments(verts)
+    return torch.abs(m["ixx"] + m["iyy"]) * h * rho_ice
+
+
+def poly_rmax(verts: torch.Tensor,
+              center: torch.Tensor | None = None) -> torch.Tensor:
+    """Max distance from ``center`` (default origin) to any vertex."""
+    if center is not None:
+        verts = verts - center[..., None, :]
+    return torch.sqrt(torch.amax(torch.sum(verts ** 2, dim=-1), dim=-1))
+
+
+def poly_angles(verts: torch.Tensor, nv: torch.Tensor) -> torch.Tensor:
+    """Interior vertex angles in degrees, concavity-corrected ``[..., V]``.
+
+    For a CCW polygon the interior angle at v is the angle from (next-v) to
+    (prev-v) measured CCW, in (0, 360) (polyangles.m:40-54).  Padded slots
+    return 0.
+    """
+    idx = torch.arange(verts.shape[-2], device=verts.device)
+    last = nv[..., None].long() - 1
+    prev_i = torch.where(idx == 0, last, idx - 1)
+    next_i = torch.where(idx == last, torch.zeros_like(idx), idx + 1)
+    prev = torch.take_along_dim(verts, prev_i[..., None], dim=-2)
+    nxt = torch.take_along_dim(verts, next_i[..., None], dim=-2)
+    e1 = nxt - verts   # edge to next vertex
+    e2 = prev - verts  # edge to previous vertex
+    ang = torch.atan2(_cross_z(e1, e2), torch.sum(e1 * e2, dim=-1))
+    ang = torch.where(ang < 0, ang + 2 * math.pi, ang) * (180.0 / math.pi)
+    return torch.where(idx < nv[..., None], ang, torch.zeros_like(ang))
 
 
 # ---------------------------------------------------------------------------

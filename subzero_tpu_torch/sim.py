@@ -16,8 +16,7 @@ the AVERAGE window and one for the summary.  Nothing here writes into a
 tensor it was given, so an overflowed chunk re-runs from its untouched
 input state.
 
-Not ported: ``plot_output=True`` (plotting, ROADMAP A13) and ``mesh``
-(multi-GPU, ROADMAP A12) raise NotImplementedError.
+Not ported: ``mesh`` (multi-GPU, ROADMAP A12) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -84,7 +83,7 @@ class Simulation:
     # mean since the previous output, accumulated EVERY STEP inside the
     # chunk — exactly the reference's accumulation at Subzero.m:304-314.
     output_dir: "str | Path | None" = None
-    # figures need plotting, which is not ported (ROADMAP A13): True raises
+    # also write a figure (plot_basic) at each output
     plot_output: bool = False
     # moving walls (uniaxial case): step_idx -> (lx, ly) of the domain box.
     # wall_cadence = the stride (in steps) at which wall_fn changes value;
@@ -101,10 +100,6 @@ class Simulation:
             raise NotImplementedError(
                 "Simulation(mesh=...): the multi-GPU spatial decomposition "
                 "is not ported yet (ROADMAP A12)")
-        if self.plot_output:
-            raise NotImplementedError(
-                "Simulation(plot_output=True): plotting is not ported yet "
-                "(ROADMAP A13)")
         if self.dissolved is None:
             self.dissolved = np.zeros((self.ny_coarse, self.nx_coarse))
         # invariant: the config's vertex rung always equals the state
@@ -747,8 +742,8 @@ class Simulation:
         """Every n_dt_out steps write snapshot + Eulerian fields and append
         the mass series.  ``eul_acc``: the AVERAGE accumulator (summed every
         step inside the chunk); consumed and re-zeroed at the output
-        boundary.  Returns the (possibly reset) accumulator.  Figures need
-        plotting, which is not ported (ROADMAP A13)."""
+        boundary.  Returns the (possibly reset) accumulator.  With
+        ``plot_output`` it also writes ``fig{step:07d}.png``."""
         n_out = self.cfg.processes.n_dt_out
         if self.step_idx % n_out != 0:
             return eul_acc
@@ -784,6 +779,17 @@ class Simulation:
         series = [tuple(r) + (0.0,) * (4 - len(r)) for r in series]
         self._mass_series = series
         np.save(out / "mass_series.npy", np.asarray(series))
+        if self.plot_output:
+            try:
+                from .plotting import plot_basic     # selects Agg
+
+                fig = plot_basic(self.state, self.cfg, self.forcing)
+                fig.savefig(out / f"fig{self.step_idx:07d}.png", dpi=110)
+                import matplotlib.pyplot as plt
+
+                plt.close(fig)
+            except Exception as e:  # plotting must never kill a run
+                print(f"[sim] plot failed: {e}")
         return eul_acc
 
     # -- observability -----------------------------------------------------

@@ -15,8 +15,8 @@ from subzero_tpu.dynamics.broadphase import (
 )
 from subzero_tpu.dynamics.contact import boundary_contact, contact_forces
 from subzero_tpu.dynamics.step import domain_polygon
-from subzero_tpu.dynamics.trajectory import trajectory_update
-from subzero_tpu.forcing import gyre_ocean
+from subzero_tpu.dynamics.trajectory import floe_stress, trajectory_update
+from subzero_tpu.forcing import gyre_ocean, interp_bilinear_mxu
 from subzero_tpu.state import state_from_polygons
 
 from subzero_tpu_torch.convert import (
@@ -25,6 +25,7 @@ from subzero_tpu_torch.convert import (
 from subzero_tpu_torch.dynamics import broadphase as tbp
 from subzero_tpu_torch.dynamics import contact as tcontact
 from subzero_tpu_torch.dynamics import trajectory as ttraj
+from subzero_tpu_torch.forcing import interp_bilinear_mxu as t_interp_mxu
 from test_torch_step import configs, lattice, star_lattice, to_numpy
 
 torch.set_num_threads(1)
@@ -46,6 +47,40 @@ def lattice_state(side, periodic, seed=0, n_dead=3):
     dead[np.random.default_rng(seed).choice(n, n_dead, replace=False)] = True
     js = js.replace(alive=js.alive & ~jnp.asarray(dead))
     return jcfg, pcfg, js, lx
+
+
+def test_floe_stress_matches_jax():
+    _, _, js, _ = lattice_state(4, True)
+    rng = np.random.default_rng(7)
+    n, k = js.n, 8
+    cf = rng.normal(0.0, 1e6, (2, n, k))
+    pt = np.asarray(js.x)[:, None] + rng.normal(0.0, 1e3, (2, n, k))
+    pt[1] += np.asarray(js.y)[:, None] - np.asarray(js.x)[:, None]
+    valid = rng.random((n, k)) < 0.6
+    want = floe_stress(js, *(jnp.asarray(a) for a in (*cf, *pt, valid)))
+    got = ttraj.floe_stress(state_from_numpy(to_numpy(js), device="cpu"),
+                            *(_t(a) for a in (*cf, *pt, valid)))
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-12 * np.max(np.abs(want)))
+
+
+def test_interp_bilinear_mxu_matches_jax():
+    # the port's gather against the JAX one-hot matmuls, points inside,
+    # on and beyond the grid (clamped), through several JAX chunks
+    fc = gyre_ocean(lx=4e4, dx=5e3, transport=2e3, wind_u=3.0,
+                    dtype=jnp.float64)
+    fields = jnp.stack([fc.uo, fc.vo, fc.ua, fc.va])
+    rng = np.random.default_rng(8)
+    fx, fy = rng.uniform(-5e4, 5e4, (2, 3, 700))
+    fx[0, :5] = np.asarray(fc.x0) + 5e3 * np.arange(5)     # grid nodes
+    want = interp_bilinear_mxu(fields, jnp.asarray(fx), jnp.asarray(fy),
+                               fc.x0, fc.y0, fc.dx, chunk=512)
+    got = t_interp_mxu(_t(fields), _t(fx), _t(fy), _t(fc.x0), _t(fc.y0),
+                       _t(fc.dx), chunk=512)
+    assert got.shape == want.shape == (4, 2100)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-12)
 
 
 @pytest.mark.parametrize("periodic,n_skip", [(True, 0), (False, 0),

@@ -25,8 +25,8 @@ the CPU.
   continues in the port, and a port checkpoint in JAX, matching the
   straight runs.
 * Output with AVERAGE and dissolved advection, moving walls, the merge-pair
-  pool order, two-way pool shrinking, the profiler hook, and the options
-  that are not ported.
+  pool order, two-way pool shrinking, the profiler hook, and the option
+  that is not ported (``mesh``).
 """
 
 from __future__ import annotations
@@ -432,5 +432,3 @@ def test_unported_options_raise():
               modulus=ps.modulus)
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         tsim.Simulation(mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tsim.Simulation(plot_output=True, **kw)

@@ -8,6 +8,8 @@ interlocking concave stars under the default ContactConfig (per-region
 contacts), periodic and walled.  Tolerances: positions within 1e-6 m and
 velocities within 1e-9 m/s — the convex envelope of test_golden.py — and the
 same collision count, neighbour table and pool counters every step.
+The walled lattice also runs under ``contact_impl="xla"`` (the
+segment-midpoint clip), aggregate and per-region.
 """
 
 from __future__ import annotations
@@ -245,12 +247,21 @@ def test_cells_broadphase_lattice_matches_jax():
 
 
 def test_make_step_fn_rejects_unported_options():
-    _, pcfg = configs(8, 1e4, periodic=True)
-    fc = forcing_from_numpy(to_numpy(uniform_forcing(dtype=jnp.float64)),
-                            device="cpu")
-    bad = pcfg.replace(numerics=tcfg.NumericsConfig(contact_impl="xla"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        torch_step_fn(bad, fc, MODULUS, device="cpu")
+    # contact_impl="xla", the one option the port once rejected, now builds
+    # a working step: the segment-midpoint clip (geometry/clip_batched.py)
+    # in lockstep with the JAX step on test_walled_gyre_matches_jax's
+    # lattice, in aggregate and in per-region mode.
+    polys, vel, lx = lattice(6, seed=1)
+    jforcing = gyre_ocean(lx=4 * lx, dx=lx / 8, transport=2e3, wind_u=8.0,
+                          wind_v=-4.0, dtype=jnp.float64)
+    for contact in (None, {}):
+        jcfg, pcfg = configs(40, lx, periodic=False, contact=contact,
+                             numerics=dict(contact_impl="xla"))
+        jstate = state_from_polygons(polys, 0.5, jcfg, velocities=vel)
+        dpos, dvel, walls, _ = run_lockstep(jcfg, pcfg, jstate, jforcing, 50)
+        assert sum(walls[:20]) > 0, "no floe touched a wall"
+        assert dpos < 1e-6
+        assert dvel < 1e-9
 
 
 def test_entry_points_need_cuda_by_default(monkeypatch):
