@@ -104,6 +104,25 @@ prints no result):
    oracle's floe-steps/s on the host beside the CUDA step's.  (e) If
    matplotlib imports, ``plot_basic`` of (d)'s end state (host copies) to
    a temporary PNG; otherwise one line saying no figure was drawn.
+8. The spatial decomposition (``subzero_tpu_torch.parallel``) at world size
+   1 (the machine has one GPU): (a) a world-size-1 NCCL group on
+   ``tcp://127.0.0.1:<free port>`` with a ("shards",) and a 1x1 ("sx",
+   "sy") mesh, and a gloo group over the same rank; (b) both meshes' steps
+   against ``make_step_fn`` on the card in float64 for 20 steps on phase
+   3's periodic and walled 256-quad lattices, per-region contacts,
+   ``overlap_halo`` on and off: live rows within rtol 1e-5, atol 1e-8,
+   equal collision counts, no overflow flag; (c) phase 4's aggregate
+   periodic and default periodic lattices through the slab step in
+   float32, one warm-up and 30 timed steps: floe-steps/s beside phase 4's,
+   per-phase CUDA-event times (exchange, contact, band, wall, trajectory,
+   migration), peak memory and the clip's launches (two a periodic step:
+   the interior and band passes); before it the kernel on one slab step's
+   interior and band batches against the plain version at phase 4's
+   float32 bounds; after it the live floes equal to phase 4's and no
+   overflow flag on any rank; one more step runs its exchange, contact
+   and migration under ``torch.cuda.set_sync_debug_mode("error")``; (d)
+   ``out_of_box_sim`` with ``mesh=`` on the NCCL group against the same on
+   the gloo CPU group, float64, 60 steps through ``sim_lockstep``.
 
 Earlier lines report build time; at each timed shape the kernel's time per
 wrapper call (host launch cost included, as the record's ``ms``), its card
@@ -112,9 +131,9 @@ and the bound with the kernel's share of it; per run floe-steps/s,
 per-phase CUDA-event times, peak memory, the region-pool sizes and the
 largest region-pool demand.  The line before last holds the card's name
 and power limit; before it, one JSON object with the kernel's record, its
-``launches`` summed over the seven phase-4 runs, the phase-6 run and the
-three phase-7 (d) runs.  The last line is ``{"ok": true, "device":
-{...}}``.
+``launches`` summed over the seven phase-4 runs, the phase-6 run, the
+three phase-7 (d) runs and phase 8 (c)'s two slab-step runs.  The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -841,7 +860,7 @@ def phase_main_path(kernel_record):
         pools = (region_pool_slots(cfg) if cfg.contact.per_region
                  else "off")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        results[label] = (rate, phase, peak)
+        results[label] = (rate, phase, peak, int(s.alive.sum()))
         log(f"[main] {label}: {rate:.1f} floe-steps/s over {STEPS} steps; "
             f"per step (CUDA events, ms): "
             + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
@@ -991,6 +1010,10 @@ def copy_run_state(dst, src):
     dst.step_idx = src.step_idx
     dst.dissolved = np.array(src.dissolved)
     dst.__post_init__()
+    if dst.mesh is not None:
+        # keep src's slot layout (the rebuild rebalanced the slabs)
+        dst.state = state_from_numpy(state_to_numpy(src.state), device=dev,
+                                     dtype=str(src.state.x.dtype)[6:])
     dst._chunk_frozen = True
     for k in ("amax", "exported_mass", "last_birth_nv"):
         setattr(dst.lifecycle, k, getattr(src.lifecycle, k, 0))
@@ -1663,7 +1686,7 @@ def phase_remainder(runs, results, kernel_record):
     torch.cuda.reset_peak_memory_stats()
     launches, rate, phase, s, aux, _ = run_main_path(quads, cfg, forcing)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    r_int, p_int, m_int = results[label]
+    r_int, p_int, m_int, _ = results[label]
     log(f'[xla] {label}, contact_impl="xla": {rate:.1f} floe-steps/s over '
         f"{STEPS} steps; per step (CUDA events, ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
@@ -1726,6 +1749,317 @@ def phase_remainder(runs, results, kernel_record):
         f"{time.perf_counter() - t_d:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the spatial decomposition (parallel/) at world size 1
+# ---------------------------------------------------------------------------
+
+SPATIAL_STEPS = 20        # (b) float64 lockstep depth
+SPATIAL_GHOSTS = 256      # (c) ghost buffers: the x-edge bands hold ~100 floes
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1: a group's rendezvous needs no network."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class RankGroup:
+    """``world`` processes of ``argv``, one per rank, started in the
+    background, each with the environment ``torchrun --nproc-per-node``
+    would give it on top of ``env``: ``RANK`` = ``LOCAL_RANK`` = its rank,
+    ``WORLD_SIZE``, ``MASTER_ADDR=127.0.0.1`` and a free ``MASTER_PORT``.
+    ``wait()`` returns what each rank printed (stdout and stderr together,
+    also kept in ``logs``).  It raises ``RuntimeError`` when a rank failed,
+    or when the group outlives ``timeout`` seconds from its start, and then
+    every rank has been killed."""
+
+    def __init__(self, argv, world: int, timeout: float, env=None,
+                 cwd=None):
+        import os
+
+        base = dict(os.environ if env is None else env,
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                    WORLD_SIZE=str(world))
+        self.timeout = timeout
+        self.deadline = time.monotonic() + timeout
+        self.logs = [""] * world
+        self.procs = [subprocess.Popen(
+            argv, env=dict(base, RANK=str(r), LOCAL_RANK=str(r)), cwd=cwd,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+    def wait(self) -> list:
+        try:
+            for r, p in enumerate(self.procs):
+                self.logs[r] = p.communicate(timeout=max(
+                    self.deadline - time.monotonic(), 0.1))[0]
+        except subprocess.TimeoutExpired:
+            for p in self.procs:
+                p.kill()
+            for r, p in enumerate(self.procs):
+                if p.stdout is not None and not p.stdout.closed:
+                    self.logs[r] = p.communicate()[0]
+            raise RuntimeError(f"{len(self.procs)} ranks ran past "
+                               f"{self.timeout} s and were killed")
+        bad = [r for r, p in enumerate(self.procs) if p.returncode]
+        if bad:
+            raise RuntimeError("".join(
+                f"rank {r} failed (exit {self.procs[r].returncode}):\n"
+                f"{self.logs[r][-4000:]}\n" for r in bad))
+        return self.logs
+
+
+def spatial_meshes(device="cuda"):
+    """(a) The world-size-1 groups: the default group on ``device`` (NCCL
+    for CUDA) with a 1-D ("shards",) and a 1x1 ("sx", "sy") mesh over it,
+    and a gloo group over the same rank with a CPU 1-D mesh."""
+    import torch.distributed as dist
+
+    from subzero_tpu_torch.parallel.distributed import Mesh, initialize
+
+    initialize(init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+               rank=0, device=device)
+    gloo = dist.new_group(backend="gloo")
+    meshes = {"1-D": Mesh((1,), ("shards",), device=device),
+              "2-D": Mesh((1, 1), ("sx", "sy"), device=device),
+              "gloo": Mesh((1,), ("shards",), device="cpu", group=gloo)}
+    log(f"[spatial] groups: {dist.get_backend()} (default) and "
+        f"{dist.get_backend(gloo)}, world size {dist.get_world_size()}; "
+        + "; ".join(repr(m) for m in meshes.values()))
+    return meshes
+
+
+def live_rows(state):
+    """Sorted (x, y, u, v, h) rows of the live floes (test_spatial.py)."""
+    a = state.alive.cpu().numpy()
+    rows = np.stack([getattr(state, k).cpu().numpy()[a]
+                     for k in ("x", "y", "u", "v", "h")], axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def spatial_lockstep(label, polys, vel, lx, cfg, mesh, steps=SPATIAL_STEPS):
+    """(b) ``steps`` float64 steps of the mesh's step against the port's
+    ``make_step_fn`` on the mesh's device, from the same numpy state: the
+    gathered live rows within rtol 1e-5, atol 1e-8 (JAX's test_spatial.py
+    bar), the same collision count every step, no overflow flag."""
+    import torch
+
+    from subzero_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from subzero_tpu_torch.dynamics.step import make_step_fn
+    from subzero_tpu_torch.forcing import uniform_forcing
+    from subzero_tpu_torch.parallel import gather_state, shard_state
+    from subzero_tpu_torch.parallel.spatial2d import mesh_step
+    from subzero_tpu_torch.state import state_from_polygons
+
+    dev = mesh.device
+    st0 = state_to_numpy(state_from_polygons(polys, 0.5, cfg,
+                                             velocities=vel, device="cpu"))
+    fc = uniform_forcing(lx=4 * lx, dx=lx / 8, uo=0.1, va=5.0,
+                         dtype=torch.float64, device=dev)
+    single = make_step_fn(cfg, fc, MODULUS, device=dev)
+    step, rebalance = mesh_step(cfg, fc, MODULUS, 0.0, mesh)
+    s1 = state_from_numpy(st0, device=dev, dtype=torch.float64)
+    sn = shard_state(rebalance(s1), mesh)
+    ncol, flags = [], []
+    for i in range(steps):
+        s1, a1 = single(s1, i)
+        sn, an = step(sn, i)
+        ncol.append((int(a1.n_collisions), int(an.n_collisions)))
+        flags.append(bool(step.overflow) or any(bool(getattr(an, k)) for k
+                                                in ("region_overflow",
+                                                    "pair_pool_overflow")))
+    r1, rn = live_rows(s1), live_rows(gather_state(sn, mesh))
+    ok = r1.shape == rn.shape and np.allclose(rn, r1, rtol=1e-5, atol=1e-8)
+    d = np.max(np.abs(rn - r1), axis=0) if r1.shape == rn.shape else None
+    log(f"[spatial] (b) {label}, {mesh.axis_names}, {steps} steps: max|d| "
+        f"x,y {max(d[:2]):.3e} m, u,v {max(d[2:4]):.3e} m/s, h "
+        f"{d[4]:.3e} m; collisions/step {[c[1] for c in ncol]} (equal: "
+        f"{all(a == b for a, b in ncol)}); overflow {any(flags)}")
+    if not ok or any(a != b for a, b in ncol) or any(flags) \
+            or sum(c[1] for c in ncol) == 0:
+        raise AssertionError(f"{label}: the mesh step left the single-device "
+                             f"step (or overflowed, or never collided)")
+
+
+def run_spatial_main(state, cfg, forcing, mesh):
+    """(c) Warm-up step + STEPS timed steps of the slab step from the
+    global ``state``; returns (launches, rate, phase ms per step, end slab,
+    aux, overflow seen on any rank, live floes over the mesh after the
+    timed steps).  One more step after the timing runs its exchange,
+    contact and migration under ``torch.cuda.set_sync_debug_mode("error")``
+    (the trajectory update keeps its one host sync)."""
+    import torch
+
+    from subzero_tpu_torch.kernels import clip as kclip
+    from subzero_tpu_torch.parallel import shard_state
+    from subzero_tpu_torch.parallel.spatial2d import mesh_step
+
+    step, rebalance = mesh_step(cfg, forcing, MODULUS, 0.0, mesh)
+    slab = shard_state(rebalance(state), mesh)
+    marks = []
+
+    def timer(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    flag = torch.zeros((), dtype=torch.bool, device=mesh.device)
+    kclip.clip_stats_cuda.launches = 0
+    s, aux = step(slab, 0)
+    torch.cuda.synchronize()
+    marks.clear()
+    t0 = time.perf_counter()
+    for i in range(1, STEPS + 1):
+        s, aux = step(s, i, timer=timer)
+        # step.overflow: every rank's neighbour table, ghosts and migration
+        flag = flag | step.overflow | aux.region_overflow \
+            | aux.pair_pool_overflow
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kclip.clip_stats_cuda.launches
+    n_alive = int(mesh.psum(s.alive.sum()[None]).item())
+    phase = {}
+    for (name, a), (_, b) in zip(marks, marks[1:]):
+        if name != "end":
+            phase[name] = phase.get(name, 0.0) + a.elapsed_time(b) / STEPS
+
+    def strict(name):
+        # host syncs raise everywhere but in the trajectory update
+        torch.cuda.set_sync_debug_mode(
+            0 if name in ("trajectory", "end") else "error")
+
+    try:
+        s, aux = step(s, STEPS + 1, timer=strict)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    flag = flag | step.overflow
+    return (launches, state.n * STEPS / wall, phase, s, aux, bool(flag),
+            n_alive)
+
+
+def check_spatial_clips(state, cfg, forcing, mesh, label):
+    """(c) The clip kernel on the inputs of one slab step's two overlap
+    calls, the interior pass's and the band pass's (band rows against the
+    ghosts: a batch no other phase gives it), against the plain version
+    at phase 4's float32 bounds.  Returns the largest area difference."""
+    import torch
+
+    from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
+    from subzero_tpu_torch.kernels import clip as kclip
+    from subzero_tpu_torch.parallel import shard_state
+    from subzero_tpu_torch.parallel.spatial2d import mesh_step
+
+    step, rebalance = mesh_step(cfg, forcing, MODULUS, 0.0, mesh)
+    slab = shard_state(rebalance(state), mesh)
+    got = captured_clip_inputs(lambda: step(slab, 0))
+    if len(got) != 2:
+        raise AssertionError(f"{label}: {len(got)} overlap clips in a slab "
+                             f"step, expected 2")
+    worst = 0.0
+    for name, (a, b) in zip(("interior", "band"), got):
+        da, dc = compare(kclip.clip_stats_cuda(a, b, False),
+                         clip_integral_bm(a, b, False), torch.float32,
+                         f"{label} {name} pass")
+        log(f"[kernel] slab step {label}, {name} pass B={a.shape[0]} "
+            f"Vp={a.shape[1]} Vq={b.shape[1]}: max|d area| {da:.3e}  "
+            f"max|d chord| {dc:.3e}  n_cross equal")
+        worst = max(worst, da)
+    return worst
+
+
+def phase_spatial(results, kernel_record, device="cuda"):
+    """Phase 8: the spatial decomposition on the card at world size 1."""
+    import torch
+    import torch.distributed as dist
+
+    from subzero_tpu_torch.forcing import uniform_forcing
+    from subzero_tpu_torch.sim import out_of_box_sim
+    from subzero_tpu_torch.state import state_from_polygons
+
+    t_phase = time.perf_counter()
+    meshes = spatial_meshes(device)
+    try:
+        # (b) float64 lockstep on phase 3's quad lattices, default
+        # per-region contacts, overlapped halo on and off
+        t_a = time.perf_counter()
+        for label, seed, periodic in (("256 quads periodic", 3, True),
+                                      ("256 quads walled", 1, False)):
+            polys, vel, lx = lattice(256, seed=seed)
+            for ov in (True, False):
+                cfg = lattice_config(256, lx, periodic=periodic,
+                                     dtype="float64", n_mc=64, window=16,
+                                     contact={},
+                                     numerics=dict(overlap_halo=ov))
+                for name in ("1-D", "2-D"):
+                    spatial_lockstep(f"{label}, overlap_halo={ov}", polys,
+                                     vel, lx, cfg, meshes[name])
+        t_b = time.perf_counter()
+
+        # (c) float32 at full width through the slab step
+        polys, vel, lx = lattice(N_FLOES)
+        forcing = uniform_forcing(lx=4 * lx, dx=lx / 8, uo=0.1)
+        quads = state_from_polygons(polys, 0.5, lattice_config(
+            N_FLOES, lx, periodic=True, dtype="float32"), velocities=vel)
+        total = 0
+        for label, contact in (("aggregate periodic", None),
+                               ("(a) default periodic", {})):
+            cfg = lattice_config(N_FLOES, lx, periodic=True,
+                                 dtype="float32", contact=contact,
+                                 capacity=dict(max_ghosts=SPATIAL_GHOSTS))
+            kernel_record["max_abs_err"] = max(
+                kernel_record["max_abs_err"],
+                check_spatial_clips(quads, cfg, forcing, meshes["1-D"],
+                                    label))
+            torch.cuda.reset_peak_memory_stats()
+            launches, rate, phase, s, aux, flag, n_alive = run_spatial_main(
+                quads, cfg, forcing, meshes["1-D"])
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            # interior pass + band pass: two overlap clips a periodic step
+            want = 2 * (STEPS + 1)
+            r1, p1, m1, alive1 = results[label]
+            log(f"[spatial] (c) {label}, slab step S=1: {rate:.1f} "
+                f"floe-steps/s over {STEPS} steps (single-device step, "
+                f"phase 4: {r1:.1f}); per step (CUDA events, ms): "
+                + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
+                + f"; peak memory {peak:.2f} GiB (phase 4: {m1:.2f}); clip "
+                f"launches {launches} (expected {want}: "
+                f"{launches / (STEPS + 1):.0f} per step)")
+            log(f"[spatial] (c) {label}: exchange, contact and migration "
+                f"ran under set_sync_debug_mode('error'); alive {n_alive} "
+                f"after {STEPS + 1} steps (single-device step: {alive1}), "
+                f"collisions last step {int(aux.n_collisions)}, overflow "
+                f"on any rank {flag}")
+            if launches != want:
+                raise AssertionError(f"{label}: {launches} clip launches in "
+                                     f"the slab step, expected {want}")
+            if flag or int(aux.n_collisions) == 0 or n_alive != alive1 \
+                    or not bool(torch.isfinite(s.x).all()):
+                raise AssertionError(f"{label}: the slab step overflowed or "
+                                     f"ended implausibly")
+            total += launches
+        kernel_record["launches"] += total
+        del quads, s, aux
+        torch.cuda.empty_cache()
+        t_c = time.perf_counter()
+
+        # (d) Simulation(mesh=...) on the NCCL group against the gloo group
+        def oob(dev):
+            sim = out_of_box_sim(device=dev, dtype="float64")
+            sim.mesh = meshes["1-D" if dev == "cuda" else "gloo"]
+            sim.__post_init__()
+            return sim
+
+        sim_lockstep("out_of_box_sim on a 1-shard mesh", oob, 60)
+        t_d = time.perf_counter()
+        log(f"[phase8] (a) {t_a - t_phase:.1f} s, (b) {t_b - t_a:.1f} s, "
+            f"(c) {t_c - t_b:.1f} s, (d) {t_d - t_c:.1f} s")
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
 
@@ -1759,6 +2093,7 @@ def main() -> int:
     phase_sim_parity()
     phase_big_run(record)
     phase_remainder(runs, results, record)
+    phase_spatial(results, record)
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches",

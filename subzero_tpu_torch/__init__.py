@@ -11,13 +11,13 @@ are copied).  Entry points run on the GPU (``device="cuda"``) unless the
 caller passes ``device="cpu"``, as the tests do; on CPU tensors every kernel
 wrapper uses its plain PyTorch version.
 
-Ported: everything the JAX package does on one device — the
-``Simulation`` driver (``sim.py``) with its figures (``plotting.py``), the
-lifecycle boundary and its passes (``processes/``), the Eulerian
-diagnostics, the Voronoi initial state, the validation cases, the whole
-geometry surface and the serial oracle (``oracle.py``) — at every contact
-and broad-phase option of the JAX step.  The multi-device spatial
-decomposition is not ported (ROADMAP A12).
+Ported: everything the JAX package does — the ``Simulation`` driver
+(``sim.py``) with its figures (``plotting.py``), the lifecycle boundary and
+its passes (``processes/``), the Eulerian diagnostics, the Voronoi initial
+state, the validation cases, the whole geometry surface, the serial oracle
+(``oracle.py``) and the multi-device spatial decomposition (``parallel/``,
+on ``torch.distributed``) — at every contact and broad-phase option of the
+JAX step.
 """
 
 from .config import SimConfig

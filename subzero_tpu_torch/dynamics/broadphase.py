@@ -66,6 +66,7 @@ def neighbor_candidates(
     periodic: bool,
     lx: float,
     ly: float,
+    src: tuple | None = None,
     n_skip_rows: int = 0,
 ) -> NeighborTable:
     """Bounding-circle broad phase -> top-K neighbour table.
@@ -74,11 +75,21 @@ def neighbor_candidates(
     candidates; floe-vs-boundary pairs still appear in the moving floe's
     row.  Candidates are symmetric, so the narrow phase computes each pair
     once per endpoint.
+
+    ``src``: optional ``(x_s, y_s, r_s, alive_s, n_self)`` candidate-source
+    arrays for the spatial decomposition, where the queries occupy the
+    first ``n_self`` source slots (self-pairs are excluded only there).
+    The returned indices then point into the source arrays.
     """
     n = x.shape[0]
     dev = x.device
-    dx = x[:, None] - x[None, :]
-    dy = y[:, None] - y[None, :]
+    if src is None:
+        x_s, y_s, r_s, alive_s, n_self = x, y, rmax, alive, n
+    else:
+        x_s, y_s, r_s, alive_s, n_self = src
+    m = x_s.shape[0]
+    dx = x[:, None] - x_s[None, :]
+    dy = y[:, None] - y_s[None, :]
     if periodic:
         # Minimum image on the [-lx,lx] x [-ly,ly] torus (period 2L).
         dx = dx - 2.0 * lx * torch.round(dx / (2.0 * lx))
@@ -86,10 +97,10 @@ def neighbor_candidates(
 
     r2 = dx * dx + dy * dy
     del dx, dy
-    rsum = rmax[:, None] + rmax[None, :]
-    ok = (r2 < rsum * rsum) & alive[:, None] & alive[None, :]
+    rsum = rmax[:, None] + r_s[None, :]
+    ok = (r2 < rsum * rsum) & alive[:, None] & alive_s[None, :]
     del rsum
-    ok.fill_diagonal_(False)                       # no self pairs
+    ok[:, :n_self].fill_diagonal_(False)           # no self pairs
     if n_skip_rows:
         ok[:n_skip_rows] = False
 
@@ -104,15 +115,17 @@ def neighbor_candidates(
     overflow = demand > k_max
     self_idx = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
     # invalid slots point at self (a degenerate identical-polygon pair has
-    # collinear edges only: zero crossings, zero force)
+    # collinear edges only: zero crossings, zero force); the shift gather
+    # below clamps them into the source range
+    gather_idx = torch.where(valid, idx, torch.clamp(self_idx, max=m - 1))
     idx = torch.where(valid, idx, self_idx)
 
     # Periodic image shift of each selected neighbour, recomputed on the
     # gathered [N, K] pairs: the nearest image of j sits at x_j + shift.
     if periodic:
-        il = idx.long()
-        shx = 2.0 * lx * torch.round((x[:, None] - x[il]) / (2.0 * lx))
-        shy = 2.0 * ly * torch.round((y[:, None] - y[il]) / (2.0 * ly))
+        il = gather_idx.long()
+        shx = 2.0 * lx * torch.round((x[:, None] - x_s[il]) / (2.0 * lx))
+        shy = 2.0 * ly * torch.round((y[:, None] - y_s[il]) / (2.0 * ly))
     else:
         shx = torch.zeros(idx.shape, dtype=x.dtype, device=dev)
         shy = torch.zeros(idx.shape, dtype=x.dtype, device=dev)

@@ -342,6 +342,23 @@ def _scatter(dst: torch.Tensor, sel: torch.Tensor,
     return ext.index_put_((sel,), vals)[:-1]
 
 
+def _shared_decision(overflow, need, axis_names: tuple):
+    """A pool's (overflow, demand), summed over the mesh.
+
+    ``axis_names`` holds the spatial decomposition's reducers (callables
+    that sum an integer tensor over the ranks of mesh axes; the JAX package
+    psums over each mesh axis name in turn).  One collective carries both
+    values, and the decision stays on the device.  With no reducers the
+    values pass through untouched.
+    """
+    if not axis_names:
+        return overflow, need
+    v = torch.stack([overflow.to(torch.int64), need.to(torch.int64)])
+    for psum in axis_names:
+        v = psum(v)
+    return v[0] > 0, v[1]
+
+
 def _blend_regions_compact(
     results,                     # (fx, fy, px, py, tq, sxx, syy, sxy,
                                  #  overlap) flat [P] aggregate results
@@ -353,6 +370,7 @@ def _blend_regions_compact(
     pool_base: int | None = None,  # pair count region_pair_frac refers to
                                  # (defaults to P; the active-pair pool
                                  # passes the full n*K)
+    axis_names: tuple = (),      # the mesh's reducers (_shared_decision)
 ):
     """Blend per-region contact results into the aggregate ones, running the
     region decomposition only on a fixed pool of multi-crossing pairs.
@@ -366,11 +384,9 @@ def _blend_regions_compact(
     could admit one endpoint of an unordered pair while its mirror keeps
     the aggregate force.  The overflow flag stays on the device.
     ``gather_pair`` rebuilds the selected pairs' local geometry and
-    kinematics from the floe arrays.
-
-    The JAX function's ``axis_names`` (a shared overflow decision across
-    the shards of the spatial decomposition) has no counterpart here: that
-    decomposition is not ported (ROADMAP A12).
+    kinematics from the floe arrays.  Under the spatial decomposition the
+    overflow and the demand are summed over the mesh (``axis_names``), so
+    every shard takes the same all-or-nothing decision.
 
     Returns (blended 9-tuple, overflow [] bool, pool demand [] int32).
     """
@@ -403,7 +419,7 @@ def _blend_regions_compact(
             region_dl=cfg.contact.region_dl,
             flip=flip,
         )
-    overflow = n_need > m
+    overflow, n_need = _shared_decision(n_need > m, n_need, axis_names)
     # All-or-nothing: on overflow every pair keeps the aggregate contact
     # (symmetric by construction); the overflow flag reports it.
     use = (need & rs.consistent & (rs.n_cross >= cfg.contact.min_crossings)
@@ -428,13 +444,21 @@ def contact_forces(
     nbr: NeighborTable,
     modulus: float,
     cfg: SimConfig,
+    src: tuple | None = None,     # optional candidate-source arrays
     nv: torch.Tensor | None = None,        # [N] vertex counts (region cull)
+    nv_s: torch.Tensor | None = None,      # source vertex counts
     domain_verts: torch.Tensor | None = None,  # merge-gate bbox (:54)
+    axis_names: tuple = (),       # the mesh's reducers (_shared_decision)
 ) -> PairContacts:
     """Contact forces for every (floe, candidate) in the neighbour table.
 
     Each unordered pair appears twice (once per endpoint); antisymmetry of
     the chord gives Newton's third law without a symmetrization pass.
+
+    ``src``: (verts_world_s, x_s, y_s, u_s, v_s, ksi_s, h_s, area_s) when
+    the neighbour table indexes another candidate set (the spatial
+    decomposition: local + ghost floes); every gather of a neighbour reads
+    them.
     """
     overlap_fn, _ = _clip_fns(cfg)
     dtype = x.dtype
@@ -443,12 +467,20 @@ def contact_forces(
     phys = cfg.physics
     dt = cfg.numerics.dt
     j = nbr.idx.long()
+    if src is None:
+        verts_s, x_s, y_s, u_s, v_s, ksi_s, h_s, area_s = (
+            verts_world, x, y, u, v, ksi, h, area)
+        if nv_s is None:
+            nv_s = nv
+    else:
+        verts_s, x_s, y_s, u_s, v_s, ksi_s, h_s, area_s = src
 
     r = torch.sqrt(area)
+    r_s = r if src is None else torch.sqrt(area_s)
     h_i = h[:, None].expand(n, k)
-    h_j = h[j]
+    h_j = h_s[j]
     r_i = r[:, None].expand(n, k)
-    r_j = r[j]
+    r_j = r_s[j]
     # Force_factor (floe_interactions.m:12); giant-floe special case (:15-18).
     ff = modulus * h_i * h_j / (h_i * r_j + h_j * r_i)
     giant = (r_i > 1e5) | (r_j > 1e5)
@@ -460,10 +492,10 @@ def contact_forces(
 
     # Small-region cull threshold Amin = min(N1,N2)*100/1.75
     # (floe_interactions.m:78-83); disabled without the true vertex counts.
-    if nv is None:
+    if nv is None or nv_s is None:
         amin = torch.zeros((n, k), dtype=dtype, device=dev)
     else:
-        amin = (torch.minimum(nv[:, None], nv[j]).to(dtype)
+        amin = (torch.minimum(nv[:, None], nv_s[j]).to(dtype)
                 * cfg.contact.small_region_coeff)
 
     # Merge gate (floe_interactions.m:54): floe i fully inside the domain
@@ -483,7 +515,7 @@ def contact_forces(
         )
         dom_area = 0.5 * torch.abs(torch.sum(
             bx * torch.roll(by, -1) - torch.roll(bx, -1) * by))
-        merge_ok = in_bbox[:, None] | (area[j] < 0.95 * dom_area)
+        merge_ok = in_bbox[:, None] | (area_s[j] < 0.95 * dom_area)
 
     p = n * k
     vcap = verts_world.shape[1]
@@ -493,17 +525,17 @@ def contact_forces(
 
     def gather_pair(sel_g):
         """Pair-local geometry and kinematics of the selected pair slots
-        ``sel_g [M]``, rebuilt from the floe arrays."""
+        ``sel_g [M]``, rebuilt from the floe and source arrays."""
         i_s = torch.div(sel_g, k, rounding_mode="floor")
         j_s = j_flat[sel_g]
         sh = shift_flat[sel_g]
         ci_s = torch.stack([x[i_s], y[i_s]], dim=-1)[:, None, :]
         vi_m = verts_world[i_s] - ci_s
-        vj_m = verts_world[j_s] + sh[:, None, :] - ci_s
+        vj_m = verts_s[j_s] + sh[:, None, :] - ci_s
         kin = (u[i_s], v[i_s], ksi[i_s],
-               u[j_s], v[j_s], ksi[j_s],
-               x[j_s] + sh[:, 0] - x[i_s],
-               y[j_s] + sh[:, 1] - y[i_s])
+               u_s[j_s], v_s[j_s], ksi_s[j_s],
+               x_s[j_s] + sh[:, 0] - x[i_s],
+               y_s[j_s] + sh[:, 1] - y[i_s])
         return (vi_m, vj_m, kin, ff.reshape(p)[sel_g],
                 amin.reshape(p)[sel_g], merge_ok.reshape(p)[sel_g], None)
 
@@ -520,10 +552,17 @@ def contact_forces(
         bx1 = torch.amax(verts_world[..., 0], dim=1)
         by0 = torch.amin(verts_world[..., 1], dim=1)
         by1 = torch.amax(verts_world[..., 1], dim=1)
-        jx0 = bx0[j] + nbr.shift[..., 0]
-        jx1 = bx1[j] + nbr.shift[..., 0]
-        jy0 = by0[j] + nbr.shift[..., 1]
-        jy1 = by1[j] + nbr.shift[..., 1]
+        if verts_s is verts_world:
+            sx0, sx1, sy0, sy1 = bx0, bx1, by0, by1
+        else:
+            sx0 = torch.amin(verts_s[..., 0], dim=1)
+            sx1 = torch.amax(verts_s[..., 0], dim=1)
+            sy0 = torch.amin(verts_s[..., 1], dim=1)
+            sy1 = torch.amax(verts_s[..., 1], dim=1)
+        jx0 = sx0[j] + nbr.shift[..., 0]
+        jx1 = sx1[j] + nbr.shift[..., 0]
+        jy0 = sy0[j] + nbr.shift[..., 1]
+        jy1 = sy1[j] + nbr.shift[..., 1]
         eps = 1e-3   # m; guards f32 rounding of the bbox reductions
         active = (nbr.valid
                   & (bx0[:, None] <= jx1 + eps) & (jx0 <= bx1[:, None] + eps)
@@ -540,14 +579,15 @@ def contact_forces(
         res_m = _pair_forces_flat(
             st, ui_m, vvi_m, ksii_m, zm, zm,
             uj_m, vj_k_m, ksij_m, xj_m, yj_m,
-            ff_m, area[i_s], area[j_s],
+            ff_m, area[i_s], area_s[j_s],
             shear_g, phys.mu_friction, dt,
             cfg.contact.min_chord, cfg.contact.merge_overlap_frac,
             amin=amin_m, merge_ok=mok_m,
             min_cross=cfg.contact.min_crossings,
             tang_reference=tang_ref,
         )
-        pair_pool_overflow = n_act > m2
+        pair_pool_overflow, n_act = _shared_decision(n_act > m2, n_act,
+                                                     axis_names)
         pair_pool_need = n_act.to(torch.int32)
         # All-or-nothing on overflow (as the region pool): a partial pool
         # could keep one endpoint of an unordered pair and drop its mirror.
@@ -560,7 +600,7 @@ def contact_forces(
             res9, region_overflow, region_need = _blend_regions_compact(
                 res9, st.n_cross, lambda sel2: gather_pair(sel_g[sel2]),
                 shear_g, phys.mu_friction, dt, cfg,
-                pair_ok=use_m, pool_base=p,
+                pair_ok=use_m, pool_base=p, axis_names=axis_names,
             )
 
         zerof = torch.zeros((p,), dtype=dtype, device=dev)
@@ -580,7 +620,7 @@ def contact_forces(
         # buffers are the step's largest tensors after the broad phase and
         # die with it.
         ci = torch.stack([x, y], dim=-1)[:, None, None, :]  # [N, 1, 1, 2]
-        vj = verts_world[j] + nbr.shift[:, :, None, :] - ci
+        vj = verts_s[j] + nbr.shift[:, :, None, :] - ci
         vi = (verts_world[:, None] - ci).expand(vj.shape)
         st = overlap_fn(vi.reshape(p, vcap, 2), vj.reshape(p, vcap, 2))
         del vi, vj
@@ -597,12 +637,12 @@ def contact_forces(
                 fl(ksi[:, None].expand(n, k)),
                 # kinematics in the pair-local frame: centroid = origin
                 zero_p, zero_p,
-                fl(u[j]), fl(v[j]), fl(ksi[j]),
-                fl(x[j] + nbr.shift[..., 0] - x[:, None]),
-                fl(y[j] + nbr.shift[..., 1] - y[:, None]),
+                fl(u_s[j]), fl(v_s[j]), fl(ksi_s[j]),
+                fl(x_s[j] + nbr.shift[..., 0] - x[:, None]),
+                fl(y_s[j] + nbr.shift[..., 1] - y[:, None]),
                 fl(ff),
                 fl(area[:, None].expand(n, k)),
-                fl(area[j]),
+                fl(area_s[j]),
                 shear_g, phys.mu_friction, dt,
                 cfg.contact.min_chord, cfg.contact.merge_overlap_frac,
                 amin=fl(amin),
@@ -619,7 +659,7 @@ def contact_forces(
                     (fx, fy, px, py, tq, sxx, syy, sxy, overlap),
                     st.n_cross, gather_pair,
                     shear_g, phys.mu_friction, dt, cfg,
-                    pair_ok=nbr.valid.reshape(p),
+                    pair_ok=nbr.valid.reshape(p), axis_names=axis_names,
                 )
 
     fx, fy, px, py, tq, sxx, syy, sxy, overlap, merge_i, merge_j = (
@@ -660,6 +700,7 @@ def boundary_contact(
     modulus: float,
     cfg: SimConfig,
     nv: torch.Tensor | None = None,  # [N] vertex counts (region cull)
+    axis_names: tuple = (),        # the mesh's reducers (_shared_decision)
 ) -> BoundaryContact:
     """Floe-vs-domain-boundary contact (the reference's ``floebound`` path).
 
@@ -757,7 +798,7 @@ def boundary_contact(
                 (fx, fy, px, py, tq, sxx, syy, sxy, overlap),
                 st.n_cross, gather_floe,
                 shear_g, phys.mu_friction, dt, cfg,
-                pair_ok=alive,
+                pair_ok=alive, axis_names=axis_names,
             )
 
     absorb = ar / area > cfg.contact.boundary_overlap_frac

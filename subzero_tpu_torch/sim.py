@@ -16,7 +16,12 @@ the AVERAGE window and one for the summary.  Nothing here writes into a
 tensor it was given, so an overflowed chunk re-runs from its untouched
 input state.
 
-Not ported: ``mesh`` (multi-GPU, ROADMAP A12) raises NotImplementedError.
+With a ``mesh`` (``parallel.distributed.Mesh``) the driver is SPMD: every
+rank runs the same ``Simulation``.  ``self.state`` is the global state on
+every rank; a chunk runs the slab or tile step on this rank's slab, sums
+the per-step ledger over the mesh and gathers the slabs at its end.  The
+lifecycle, rebalancing and capacity growth then run on identical global
+states on every rank, and rank 0 alone writes outputs and checkpoints.
 """
 
 from __future__ import annotations
@@ -91,15 +96,24 @@ class Simulation:
     # (README.md Validation 1j: 15 m every 30 steps).
     wall_fn: "Callable[[int], tuple[float, float]] | None" = None
     wall_cadence: int = 30
-    # multi-device spatial decomposition is not ported (ROADMAP A12): a
-    # mesh raises
+    # multi-device: a parallel.distributed.Mesh switches the inner loop to
+    # the spatial-decomposition step — axis ("shards",) = 1-D x-slabs
+    # (parallel/spatial.py), axes ("sx", "sy") = 2-D tiles
+    # (parallel/spatial2d.py).  Rebalance at lifecycle changes.
     mesh: "object | None" = None
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(
-                "Simulation(mesh=...): the multi-GPU spatial decomposition "
-                "is not ported yet (ROADMAP A12)")
+            from .parallel.distributed import Mesh
+
+            if not isinstance(self.mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.distributed.Mesh, "
+                                f"not {type(self.mesh).__name__}")
+            if self.state.device != self.mesh.device:
+                # the mesh's backend serves only its device: a state
+                # elsewhere is the caller's to move, never moved here
+                raise ValueError(f"the state is on {self.state.device}, the "
+                                 f"mesh on {self.mesh.device}")
         if self.dissolved is None:
             self.dissolved = np.zeros((self.ny_coarse, self.nx_coarse))
         # invariant: the config's vertex rung always equals the state
@@ -170,12 +184,23 @@ class Simulation:
             self._update_walls()
         # the forcing grids live on the state's device
         self.forcing = self.forcing.to(device=dev)
+        if self.mesh is not None:
+            self._build_spatial()
         # chunk = gcd of the ACTIVE host-pass cadences (plus the output and
         # moving-wall cadences) so every boundary that needs host work lands
         # on a chunk boundary
         self._chunk = self._pick_chunk()
         self._chunk_frozen = False
         self._built_cfg = self.cfg
+
+    def _build_spatial(self) -> None:
+        """The slab or tile step by the mesh's axis names, the matching
+        rebalance, and the state rebalanced for it."""
+        from .parallel.spatial2d import mesh_step
+
+        self._spatial_step, self._reshard = mesh_step(
+            self.cfg, self.forcing, self.modulus, self.heat_flux, self.mesh)
+        self.state = self._reshard(self.state)
 
     def _pick_chunk(self) -> int:
         """gcd of the active host-pass cadences (+ output + moving walls),
@@ -231,27 +256,43 @@ class Simulation:
         never written.
         """
         cfg = self.cfg
+        mesh = self.mesh
         nx, ny = self.nx_coarse, self.ny_coarse
         sdt = dissolved.dtype
         # a floe's rmax changes only at lifecycle boundaries: size the
         # AVERAGE cell window once for the whole chunk
         window = (cell_window(state, cfg, nx, ny)
                   if cfg.processes.average else None)
+        if mesh is not None:
+            from .parallel import gather_state, shard_state
+
+            state = shard_state(state, mesh)
         auxes, exported = [], []
         for i in range(n):
-            st2, aux = physics_step(
-                state, self.forcing, start + i, domain_verts, self.modulus,
-                self.heat_flux, cfg,
-            )
+            if mesh is None:
+                st2, aux = physics_step(
+                    state, self.forcing, start + i, domain_verts,
+                    self.modulus, self.heat_flux, cfg,
+                )
+            else:
+                st2, aux = self._spatial_step(state, start + i,
+                                              domain_verts)
             # Kill-mass ledger: exported kills (out-of-domain / absorb /
             # below-ymin) leave the domain; the rest dissolve onto the
             # coarse grid (calc_dissolved_mass.m).
-            dissolved = dissolved + dissolved_mass_grid(
+            grid = dissolved_mass_grid(
                 state, aux.killed & ~aux.exported, cfg, nx, ny)
             # per-step export recorded into a slot (not a running f32 sum):
             # the host accumulates the slots in float64
-            exported.append(torch.sum(torch.where(
-                aux.exported, state.mass, torch.zeros_like(state.mass))))
+            exp_i = torch.sum(torch.where(
+                aux.exported, state.mass, torch.zeros_like(state.mass)))
+            if mesh is not None:
+                # this rank's kills: one sum over the mesh for both
+                both = mesh.psum(torch.cat([grid.reshape(-1).to(sdt),
+                                            exp_i[None].to(sdt)]))
+                grid, exp_i = both[:-1].reshape(grid.shape), both[-1]
+            dissolved = dissolved + grid
+            exported.append(exp_i)
             if cfg.processes.advect_dissolved:
                 from .dissolved import advect_dissolved
 
@@ -261,13 +302,16 @@ class Simulation:
                 dissolved = dis2.to(sdt)
                 vd_tend = tend2.to(vd_tend.dtype)
             if cfg.processes.average:
-                eul = eulerian_data(st2, cfg, nx, ny, window=window,
-                                    exact_boundary=False)
+                eul = eulerian_data(
+                    st2 if mesh is None else gather_state(st2, mesh),
+                    cfg, nx, ny, window=window, exact_boundary=False)
                 eul_acc = EulerianData(*(a + b.to(a.dtype)
                                          for a, b in zip(eul_acc, eul)))
             state = st2
             auxes.append(aux)
 
+        if mesh is not None:
+            state = gather_state(state, mesh)
         chunk = ChunkAux(auxes)
         last = chunk.last
         exp = torch.zeros((self._chunk,), dtype=sdt, device=dissolved.device)
@@ -293,6 +337,10 @@ class Simulation:
             torch.max(torch.where(state.alive, state.nv,
                                   torch.zeros_like(state.nv))),
         )])
+        if mesh is not None:
+            # the flags read from this rank's slab; every other entry is
+            # global already
+            summary = mesh.pmax(summary)
         # per-step export slots ride the same single-fetch vector; the host
         # sums them in float64 (s[1] keeps the chunk total in the state
         # dtype for quick checks)
@@ -461,6 +509,8 @@ class Simulation:
         pay for headroom they don't use yet."""
         dc = dataclasses
         mult = 8
+        if self.mesh is not None:
+            mult = math.lcm(8, self.mesh.size)
         new_cap = max(need, int(state.n * 1.5))
         new_cap = -(-new_cap // mult) * mult
         print(f"[sim] step {self.step_idx}: growing floe capacity "
@@ -625,6 +675,12 @@ class Simulation:
                 from .processes.host import unpack_view, view_width
 
                 tp = time.time()
+                # a mesh's aux as the global arrays: every rank reaches
+                # this boundary (the summary is reduced over the mesh, the
+                # lifecycle is shared)
+                baux = auxes if self.mesh is None else _gather_chunk(
+                    auxes, self.mesh,
+                    ("merge_i", "nbr_idx") if merge_any else ())
                 nn = self.state.n
                 kk = self.cfg.capacity.max_neighbors
                 w1 = view_width(self.state.v_cap)
@@ -633,10 +689,10 @@ class Simulation:
                 wa = -(-(8 * cap_a + 1) // nn)
                 if merge_any:
                     packed = _pack_boundary_merges(
-                        self.state, auxes, dissolved, cap_a).cpu().numpy()
+                        self.state, baux, dissolved, cap_a).cpu().numpy()
                 else:
                     packed = _pack_boundary(
-                        self.state, auxes.last, dissolved,
+                        self.state, baux.last, dissolved,
                         cap_a).cpu().numpy()
                 view = unpack_view(packed[:, :w1], nn)
                 bc_col = packed[:, w1]
@@ -649,7 +705,7 @@ class Simulation:
                         cap_a *= 2
                     self._aux_cap = cap_a
                     aux_last = _unpack_aux(
-                        _pack_aux_last(auxes.last).cpu().numpy())
+                        _pack_aux_last(baux.last).cpu().numpy())
                 else:
                     aux_last = _unpack_aux_compact(
                         avals[1:1 + 8 * cap_a], bc_col, nn, kk)
@@ -667,7 +723,7 @@ class Simulation:
                     if cnt > _MERGE_POOL:
                         # pool overflow (storm-scale merge burst): fall
                         # back to the full chunk merge tables
-                        mk = _pack_merges(auxes).cpu().numpy()
+                        mk = _pack_merges(baux).cpu().numpy()
                         merge_pairs = _merge_pairs_from(
                             mk[..., 0] != 0, mk[..., 1].astype(np.int64), n)
                     else:
@@ -687,8 +743,11 @@ class Simulation:
                 tp = time.time()
                 if self.cfg is not self._built_cfg:
                     # the lifecycle grew the floe capacity or the vertex
-                    # rung: rebuild
+                    # rung: rebuild (which rebalances a mesh's slabs with
+                    # the new cfg itself)
                     self.__post_init__()
+                elif changed and self.mesh is not None:
+                    self.state = self._reshard(self.state)
                 phases["rebuild"] += time.time() - tp
                 dissolved = torch.as_tensor(dis_np, dtype=dt_, device=dev)
                 self.dissolved = dis_np
@@ -720,7 +779,8 @@ class Simulation:
                 phases["output"] += time.time() - tp
             if on_chunk is not None:
                 self.dissolved = dissolved.cpu().numpy()
-                on_chunk(self, auxes)
+                on_chunk(self, auxes if self.mesh is None
+                         else _gather_chunk(auxes, self.mesh))
             if log_every and (self.step_idx % log_every == 0):
                 self.record_metrics(ncol)
                 m = self.metrics_history()
@@ -743,9 +803,17 @@ class Simulation:
         the mass series.  ``eul_acc``: the AVERAGE accumulator (summed every
         step inside the chunk); consumed and re-zeroed at the output
         boundary.  Returns the (possibly reset) accumulator.  With
-        ``plot_output`` it also writes ``fig{step:07d}.png``."""
+        ``plot_output`` it also writes ``fig{step:07d}.png``.  On a mesh
+        every rank resets the accumulator and rank 0 alone writes."""
         n_out = self.cfg.processes.n_dt_out
         if self.step_idx % n_out != 0:
+            return eul_acc
+        if self.mesh is not None and self.mesh.rank != 0:
+            if self.cfg.processes.average and eul_acc is not None \
+                    and getattr(self, "_eul_n", 0) > 0:
+                eul_acc = self._zero_eul()
+                self._eul_n = 0
+                self._eul_acc = None
             return eul_acc
         out = Path(self.output_dir)
         snap = out / f"snap{self.step_idx:07d}"
@@ -867,7 +935,10 @@ class Simulation:
         counter, the config as ``dataclasses.asdict``, lifecycle PCG64
         state, exported-mass ledger, telemetry, metrics) + dissolved grid +
         AVERAGE accumulator + dissolved-advection AB2 tendency.  A
-        checkpoint of either package loads in the other."""
+        checkpoint of either package loads in the other.  On a mesh only
+        rank 0 writes (every rank holds the same global state)."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         path = Path(path)
         path.mkdir(parents=True, exist_ok=True)
         # ONE packed device->host copy; every field is exactly
@@ -1021,6 +1092,23 @@ class Simulation:
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
               torch.int32: np.int32, torch.bool: np.bool_}
+
+
+def _gather_chunk(chunk: ChunkAux, mesh, fields=StepAux._fields
+                  ) -> ChunkAux:
+    """A mesh chunk's aux as the global arrays: the last step whole and
+    the ``fields`` of every earlier step, each per-floe field gathered from
+    every rank's slab along the floe axis (scalars are global already).
+    Every rank calls it at the same point of the loop, so the gathers line
+    up."""
+    def gather(aux: StepAux, names) -> StepAux:
+        return aux._replace(**{
+            f: mesh.all_gather(getattr(aux, f)) for f in names
+            if getattr(aux, f).dim()})
+
+    steps = chunk._steps
+    return ChunkAux([gather(a, fields) for a in steps[:-1]]
+                    + [gather(steps[-1], StepAux._fields)])
 
 
 def _pack_state(state: FloeState) -> torch.Tensor:

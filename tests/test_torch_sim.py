@@ -25,8 +25,9 @@ the CPU.
   continues in the port, and a port checkpoint in JAX, matching the
   straight runs.
 * Output with AVERAGE and dissolved advection, moving walls, the merge-pair
-  pool order, two-way pool shrinking, the profiler hook, and the option
-  that is not ported (``mesh``).
+  pool order, two-way pool shrinking, the profiler hook, and a ``mesh``
+  that is not the port's (``Simulation(mesh=...)`` itself is held against
+  JAX in test_torch_spatial_driver.py).
 """
 
 from __future__ import annotations
@@ -427,8 +428,9 @@ def test_profile_writes_a_trace(tmp_path):
 
 
 def test_unported_options_raise():
+    # every option is ported now; a mesh that is not the port's Mesh raises
     _, ps = out_of_box_pair()
     kw = dict(cfg=ps.cfg, state=ps.state, forcing=ps.forcing,
               modulus=ps.modulus)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(TypeError, match="parallel.distributed.Mesh"):
         tsim.Simulation(mesh=object(), **kw)
