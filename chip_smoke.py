@@ -15,7 +15,9 @@ prints no result):
    intersection and difference: B=13, 81,920 and 81,921 (ragged last
    tile), B=1 and B one past a tile at Vp=Vq=16; 10,240 at 16x8; 4,096 at
    64x64; 2,048 at 64x8 and 8x64; triangles; pairs with mid-polygon
-   duplicate vertices; collinear and touching squares (f32: area within
+   duplicate vertices; collinear and touching squares; the nares_export
+   campaign's floe and coastline, where the float32 clip of both versions
+   reports a spurious overlap (ROADMAP §C) (f32: area within
    1e-5 max|area|, chord within 1e-2 m, n_cross exactly equal; f64 at 1e-9
    relative).  Then time it at 4,096x64x64 and at the model's default
    capacity (163,840 pairs of 64 slots, 10-30 real vertices; checked on
@@ -76,12 +78,17 @@ prints no result):
    launch counter zeroed just before and read just after.  It prints
    floe-steps/s of the driver and of the bare ``make_step_fn`` step on the
    same state, ``phase_report()`` with the lifecycle's per-pass seconds,
-   the live floe count before and after, peak memory and clip launches,
-   and holds the kernel against the plain version on the Eulerian call's
-   floe x cell pairs; it fails if a boundary's shadow-ledger drift, less
-   the reference's known updated-winner leak (ROADMAP §C), reaches 1e-6 of
-   the live mass, if corners, simplify, weld, ridge/raft or fracture never
-   ran, or if a chunk was committed with a pool overflow.
+   the live floe count before and after, peak memory and clip launches
+   (one a step: the Eulerian calls clip with the segment-midpoint clip in
+   plain PyTorch, as JAX's ``_overlap_one`` does), times the driver's
+   per-step AVERAGE Eulerian call and its output call on the end state,
+   and holds the kernel against the plain version on the output call's
+   floe x cell pairs; it fails if the step launched the kernel fewer than
+   once a step or an Eulerian call launched it at all, if a boundary's
+   shadow-ledger drift, less the reference's known updated-winner leak
+   (ROADMAP §C), reaches 1e-6 of the live mass, if corners, simplify,
+   weld, ridge/raft or fracture never ran, or if a chunk was committed
+   with a pool overflow.
 7. The single-device remainder.  (a) The segment-midpoint clip
    (``overlap_stats_bm``, ``difference_stats_bm`` and the vmapped
    ``overlap_stats``; plain PyTorch on both devices), CUDA against CPU in
@@ -123,6 +130,16 @@ prints no result):
    and migration under ``torch.cuda.set_sync_debug_mode("error")``; (d)
    ``out_of_box_sim`` with ``mesh=`` on the NCCL group against the same on
    the gloo CPU group, float64, 60 steps through ``sim_lockstep``.
+9. The validation campaign, ``subzero_tpu_torch.campaign`` through its
+   command line (``campaign.main``), float32 on the card into a temporary
+   directory: ``out_of_box`` for two output cadences (300 steps) straight,
+   and the same in two legs with ``--resume`` at step 150; ``uniaxial``
+   for 70 steps (its walls move at 30 and 60).  Every run exits 0 and its
+   summary's ledger (floes + dissolved + exported over the step-0 total)
+   is within 1e-6 of 1; the outputs (summaries, distributions, baselines,
+   the mass series, the last snapshot) are written; the resumed leg ends
+   at step 300 with the straight run's mass series rows, within 1e-6; the
+   clip kernel launched at least twice a walled step.
 
 Earlier lines report build time; at each timed shape the kernel's time per
 wrapper call (host launch cost included, as the record's ``ms``), its card
@@ -131,9 +148,10 @@ and the bound with the kernel's share of it; per run floe-steps/s,
 per-phase CUDA-event times, peak memory, the region-pool sizes and the
 largest region-pool demand.  The line before last holds the card's name
 and power limit; before it, one JSON object with the kernel's record, its
-``launches`` summed over the seven phase-4 runs, the phase-6 run, the
-three phase-7 (d) runs and phase 8 (c)'s two slab-step runs.  The last
-line is ``{"ok": true, "device": {...}}``.
+``launches`` summed over the seven phase-4 runs, the phase-6 run (the
+step's clip, one a step; the Eulerian calls launch none), the three
+phase-7 (d) runs, phase 8 (c)'s two slab-step runs and phase 9's four
+campaign runs.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -449,6 +467,27 @@ def phase_build():
                                          f"G={g} Vp={vp} Vq={vq} {isz} B")
 
 
+def coastline_pair(v=16):
+    """The floe and the western coastline of the nares_export campaign at
+    step 5,193 (float32 values in the floe's frame, padded to ``v`` slots
+    by repeating vertex 0): the floe lies 6.6 m from the coastline's 270 km
+    edge, and the float32 parity-integral clip reports an overlap of twice
+    the floe's area where there is none (ROADMAP §C)."""
+    floe = np.array([[-13804.852, 8189.8145], [-13827.055, -2929.4949],
+                     [-2652.168, -8302.184], [8967.305, -8930.788],
+                     [13596.332, -4865.3584], [12825.676, 4040.1536],
+                     [11223.166, 6828.0137]], np.float32)
+    coast = np.array([[-13798.238, -273057.47], [16201.762, -273057.47],
+                      [16201.762, -123057.48], [-6298.2383, -13057.478],
+                      [-13798.238, -3057.4778]], np.float32)
+
+    def padded(poly):
+        return np.concatenate([poly, np.repeat(poly[:1], v - len(poly), 0)])
+
+    return (padded(floe)[None].astype(np.float64),
+            padded(coast)[None].astype(np.float64))
+
+
 def one_past_tile(vp, vq):
     """The smallest B whose pairs fill one kernel tile and one more pair."""
     from subzero_tpu_torch.kernels import clip as kclip
@@ -471,6 +510,7 @@ def check_shapes():
     cases.append(("duplicates B=2048 Vp=Vq=24",
                   with_duplicates(p, 24, seed=6), with_duplicates(q, 24, 7)))
     cases.append(("degenerate B=8 Vp=Vq=16", *degenerate_pairs()))
+    cases.append(("coastline B=1 Vp=Vq=16", *coastline_pair()))
     return cases
 
 
@@ -1239,6 +1279,7 @@ N_BIG = 10000             # phase 6: Voronoi floes of the scaled winter pack
 BIG_START = 60
 BIG_WARMUP = 10
 BIG_STEPS = 30
+EUL_REPS = 5              # timed Eulerian calls on the end state
 
 
 def big_winter(seed=0):
@@ -1391,26 +1432,45 @@ def phase_big_run(kernel_record):
     bare = sim.state.n * 20 / (time.perf_counter() - t0)
     log(f"[big] bare make_step_fn step on the same state: {bare:.1f} "
         f"floe-steps/s over {sim.state.n} slots (20 steps)")
-    # the kernel at the diagnostics' own inputs (the floe x cell pairs of
-    # one Eulerian call on the end state), against the plain version
+    # the Eulerian calls: the segment-midpoint clip in plain PyTorch (JAX's
+    # _overlap_one), no kernel launch.  Both timed, the driver's per-step
+    # AVERAGE call (world frame, as JAX's traced path) and the output call
+    # (floe frame); then the kernel held against its plain version on the
+    # output call's floe x cell pairs
     from subzero_tpu_torch import diagnostics as tdiag
     from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
 
+    win = tdiag.cell_window(sim.state, sim.cfg, sim.nx_coarse, sim.ny_coarse)
+    calls = {
+        "AVERAGE per-step": lambda: tdiag.eulerian_data(
+            sim.state, sim.cfg, sim.nx_coarse, sim.ny_coarse, window=win,
+            exact_boundary=False),
+        "output": sim.eulerian,
+    }
     captured = []
-    saved = tdiag.clip_stats
+    saved = tdiag.overlap_stats
 
-    def capture(p, q, difference):
+    def capture(p, q):
         captured.append((p.contiguous(), q.contiguous()))
-        return saved(p, q, difference)
+        return saved(p, q)
 
-    tdiag.clip_stats = capture
+    tdiag.overlap_stats = capture
     try:
         kclip.clip_stats_cuda.launches = 0
-        sim.eulerian()
+        for call in calls.values():
+            call()
+        torch.cuda.synchronize()
         per_call = kclip.clip_stats_cuda.launches
     finally:
-        tdiag.clip_stats = saved
-    (a, b), = captured
+        tdiag.overlap_stats = saved
+    eul_ms = {}
+    for label, call in calls.items():
+        t0 = time.perf_counter()
+        for _ in range(EUL_REPS):
+            call()
+        torch.cuda.synchronize()
+        eul_ms[label] = (time.perf_counter() - t0) / EUL_REPS * 1e3
+    _, (a, b) = captured
     n = min(a.shape[0], 131072)
     got = kclip.clip_stats_cuda(a, b, False)
     want = clip_integral_bm(a[:n], b[:n], False)
@@ -1421,11 +1481,17 @@ def phase_big_run(kernel_record):
         f"chord| {dc:.3e}  n_cross equal")
     time_kernel("Eulerian floe x cell", a, b, False,
                 plain_on=n if n < a.shape[0] else None)
-    log(f"[big] clip launches: {launches / BIG_STEPS:.2f} per step in "
-        f"Simulation.run (the step's overlap clip, plus the AVERAGE "
-        f"Eulerian call), {per_call} per Eulerian call")
-    if launches == 0:
-        raise AssertionError("phase 6 ran without launching the clip kernel")
+    log(f"[big] Eulerian calls (segment-midpoint clip on the "
+        f"{captured[0][0].shape[0]} and {a.shape[0]} floe x cell pairs whose "
+        f"bounding circles meet): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in eul_ms.items())
+        + f" a call over {EUL_REPS} calls; clip launches "
+        f"{launches / BIG_STEPS:.2f} per step in Simulation.run (the step's "
+        f"overlap clip), {per_call} in the two Eulerian calls")
+    if launches < BIG_STEPS or per_call:
+        raise AssertionError(f"phase 6: {launches} clip launches in "
+                             f"{BIG_STEPS} steps and {per_call} in an "
+                             f"Eulerian call: expected one a step and none")
     if unexplained >= 1e-6 * mass0:
         raise AssertionError(f"a boundary's shadow-ledger drift, less the "
                              f"reference's known leak, is {unexplained} kg: "
@@ -2060,6 +2126,95 @@ def phase_spatial(results, kernel_record, device="cuda"):
         dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the validation campaign
+# ---------------------------------------------------------------------------
+
+CAMPAIGN_EVERY = 150      # out_of_box_sim's output cadence (n_dt_out)
+CAMPAIGN_UNIAXIAL = 70    # uniaxial steps: its walls move at 30 and 60
+
+
+def campaign_ledgers(results: Path) -> list:
+    """[(case heading, ledger)] of the summary blocks in a RESULTS.md, in
+    order."""
+    key = "- ledger (floes+dissolved+exported)/m0: "
+    out, head = [], None
+    for line in results.read_text().splitlines():
+        if line.startswith("## "):
+            head = line[3:]
+        elif line.startswith(key):
+            out.append((head, float(line[len(key):])))
+    return out
+
+
+def phase_campaign(kernel_record):
+    """Phase 9: ``subzero_tpu_torch.campaign`` on the card, float32, into a
+    temporary directory, through its command line: ``out_of_box`` for two
+    output cadences straight, and the same in two legs with ``--resume``
+    in the middle; ``uniaxial`` for CAMPAIGN_UNIAXIAL steps."""
+    import tempfile
+
+    import torch
+
+    from subzero_tpu_torch import campaign
+    from subzero_tpu_torch.kernels import clip as kclip
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, legs = Path(tmp) / "straight", Path(tmp) / "legs"
+        runs = [["out_of_box", f"--steps={2 * CAMPAIGN_EVERY}",
+                 f"--out={straight}"],
+                ["out_of_box", f"--steps={CAMPAIGN_EVERY}", f"--out={legs}"],
+                ["out_of_box", f"--steps={2 * CAMPAIGN_EVERY}", "--resume",
+                 f"--out={legs}"],
+                ["uniaxial", f"--steps={CAMPAIGN_UNIAXIAL}",
+                 f"--out={straight}"]]
+        kclip.clip_stats_cuda.launches = 0
+        rcs = [campaign.main(argv) for argv in runs]
+        torch.cuda.synchronize()
+        launches = kclip.clip_stats_cuda.launches
+        wall = time.perf_counter() - t0
+        if any(rcs):
+            raise AssertionError(f"phase 9: campaign runs exited {rcs}")
+        ledgers = (campaign_ledgers(straight / "RESULTS.md")
+                   + campaign_ledgers(legs / "RESULTS.md"))
+        missing = [str(f) for f in (
+            straight / "out_of_box" / "distributions.npz",
+            straight / "uniaxial" / "distributions.npz",
+            straight / "out_of_box" / "m0.npy",
+            straight / "uniaxial" / "m0.npy",
+            legs / "out_of_box" / f"snap{2 * CAMPAIGN_EVERY:07d}" /
+            "eulerian.npz") if not f.exists()]
+        sa = np.load(straight / "out_of_box" / "mass_series.npy")
+        sb = np.load(legs / "out_of_box" / "mass_series.npy")
+        resumed = json.loads((legs / "out_of_box" /
+                              f"snap{2 * CAMPAIGN_EVERY:07d}" /
+                              "meta.json").read_text())["step_idx"]
+    # float32 on the card: index_add_'s atomics make two runs agree to
+    # rounding, not bit for bit
+    series_d = float(np.max(np.abs(sa - sb) / np.maximum(np.abs(sa), 1.0)))
+    worst = max(abs(v - 1.0) for _, v in ledgers)
+    total = 4 * CAMPAIGN_EVERY + CAMPAIGN_UNIAXIAL
+    log(f"[campaign] 4 runs ({total} steps, walled: 2 clip launches a "
+        f"step) in {wall:.1f} s; ledgers "
+        + ", ".join(f"{h.split(' ')[0]} {v:.8f}" for h, v in ledgers)
+        + f"; resumed out_of_box ends at step {resumed}, mass series rows "
+        f"{sb[:, 0].astype(int).tolist()} within {series_d:.3e} of the "
+        f"straight run's; clip launches {launches}")
+    if missing:
+        raise AssertionError(f"phase 9: outputs missing: {missing}")
+    if len(ledgers) != 4 or worst > 1e-6:
+        raise AssertionError(f"phase 9: ledgers {ledgers}: 1e-6 from 1")
+    if (resumed != 2 * CAMPAIGN_EVERY or series_d > 1e-6
+            or sb[:, 0].tolist() != sa[:, 0].tolist()):
+        raise AssertionError("phase 9: the resumed leg does not continue the "
+                             "straight run")
+    if launches < 2 * total:
+        raise AssertionError(f"phase 9: {launches} clip launches in {total} "
+                             f"walled steps")
+    kernel_record["launches"] += launches
+
+
 def main() -> int:
     import torch
 
@@ -2094,6 +2249,7 @@ def main() -> int:
     phase_big_run(record)
     phase_remainder(runs, results, record)
     phase_spatial(results, record)
+    phase_campaign(record)
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches",

@@ -31,9 +31,15 @@ timeout and kills them on an overrun.  Each rank, on GPU ``LOCAL_RANK``:
     per rank (two a periodic step); the live floes over the mesh equal to
     the single-device step's, no overflow flag on any rank (each rank's
     neighbour table, ghost buffers and migration: ``step.overflow``).
-(e) ``uniaxial_sim()`` (200 floes, walls closing 15 m every 30 steps) with
+(e) ``uniaxial_sim()`` (200 floes, the walls closing 1.5 km every 30
+    steps, as the validation campaign closes them for a 300-step run) with
     ``mesh=`` on the NCCL slab mesh against the same on the gloo CPU mesh,
-    float64, 60 steps, chunk by chunk (``chip_smoke.sim_lockstep``).
+    float64, chunk by chunk (``chip_smoke.sim_lockstep``), through its first
+    lifecycle boundary: 200 steps, its ``n_fracture`` (``--sim-steps``
+    sets another depth), where floes fracture; it fails if no lifecycle
+    pass ran.
+
+``--phases`` picks which of (b)-(e) run (default all).
 
 Rank 0's output is printed; the line before the last gives the first
 card's name and power limit (``nvidia-smi``), the last line is
@@ -68,7 +74,8 @@ def launch(args, world: int) -> int:
         return 2
     group = cs.RankGroup(
         [sys.executable, __file__, "--rank-main", "--floes", str(args.floes),
-         "--steps", str(args.steps), "--sim-steps", str(args.sim_steps)],
+         "--steps", str(args.steps), "--phases", args.phases]
+        + (["--sim-steps", str(args.sim_steps)] if args.sim_steps else []),
         world, TIMEOUT)
     try:
         group.wait()
@@ -90,7 +97,6 @@ def run_rank(args) -> None:
         Mesh, initialize, spatial_mesh,
     )
     from subzero_tpu_torch.state import state_from_polygons
-    import subzero_tpu_torch.validation as tval
 
     dev = f"cuda:{int(os.environ['LOCAL_RANK'])}"
     t0 = time.perf_counter()
@@ -109,7 +115,8 @@ def run_rank(args) -> None:
         # (b) float64 lockstep against the single-device step
         t_b = time.perf_counter()
         for label, seed, periodic in (("256 quads periodic", 3, True),
-                                      ("256 quads walled", 1, False)):
+                                      ("256 quads walled", 1, False)
+                                      ) if "b" in args.phases else ():
             polys, vel, lx = cs.lattice(256, seed=seed)
             for ov in (True, False):
                 cfg = cs.lattice_config(256, lx, periodic=periodic,
@@ -123,7 +130,8 @@ def run_rank(args) -> None:
 
         # (c) the dryrun pack on the slab mesh
         t_c = time.perf_counter()
-        dryrun_pack(meshes["slabs"])
+        if "c" in args.phases:
+            dryrun_pack(meshes["slabs"])
 
         # (d) float32 timing: single-device step and slab step
         t_d = time.perf_counter()
@@ -133,7 +141,8 @@ def run_rank(args) -> None:
         # 1/S of the floes (26 of its 102 columns at S=4)
         cap = -(-int(args.floes * 1.25) // (8 * world)) * 8 * world
         for label, contact in (("aggregate periodic", None),
-                               ("(a) default periodic", {})):
+                               ("(a) default periodic", {})
+                               ) if "d" in args.phases else ():
             cfg = cs.lattice_config(args.floes, lx, periodic=True,
                                     dtype="float32", contact=contact,
                                     capacity=dict(max_ghosts=256))
@@ -172,24 +181,56 @@ def run_rank(args) -> None:
                     or not bool(torch.isfinite(g.x[g.alive]).all()):
                 raise AssertionError(f"{label}: the slab step over {world} "
                                      f"devices failed its checks")
-        del quads, s, aux, g
+        if "d" in args.phases:
+            del quads, s, aux, g
 
-        # (e) the mesh driver with moving walls, NCCL against gloo
+        # (e) the mesh driver with moving walls through a lifecycle
+        # boundary, NCCL against gloo
         t_e = time.perf_counter()
-
-        def uniaxial(device):
-            sim = tval.uniaxial_sim(device=device, dtype="float64")
-            sim.mesh = meshes["slabs" if device == "cuda" else "gloo"]
-            sim.__post_init__()
-            return sim
-
-        cs.sim_lockstep(f"uniaxial_sim on {world} slabs", uniaxial,
-                        args.sim_steps)
+        if "e" in args.phases:
+            mesh_uniaxial(meshes, args.sim_steps)
         cs.log(f"[spatial4] (b) {t_c - t_b:.1f} s, (c) {t_d - t_c:.1f} s, "
                f"(d) {t_e - t_d:.1f} s, (e) "
                f"{time.perf_counter() - t_e:.1f} s")
     finally:
         dist.destroy_process_group()
+
+
+CLOSE_IN = 300            # (e): the walls reach 85 km by this step
+
+
+def mesh_uniaxial(meshes, steps=None) -> dict:
+    """(e): ``uniaxial_sim()`` with ``mesh=`` on the NCCL slab mesh against
+    the same on the gloo CPU mesh, float64, chunk by chunk
+    (``chip_smoke.sim_lockstep``) for ``steps`` steps, by default through
+    its first fracture boundary (its ProcessConfig's ``n_fracture``; it has
+    no corners, and simplify waits for a floe of more than 30 vertices).
+    The walls close as the validation campaign closes them for a
+    CLOSE_IN-step run (1.5 km every 30 steps), so that the boundary
+    fractures floes and the mesh rebalances its slabs.  Fails if no
+    lifecycle pass ran.  Returns the passes' seconds."""
+    import subzero_tpu_torch.validation as tval
+
+    rate = (1e5 - 8.5e4) / (CLOSE_IN // 30)
+
+    def uniaxial(device):
+        sim = tval.uniaxial_sim(device=device, dtype="float64")
+        sim.wall_fn = lambda s: (1e5, max(1e5 - rate * (s // 30), 8.5e4))
+        sim.mesh = meshes["slabs" if device != "cpu" else "gloo"]
+        sim.__post_init__()
+        return sim
+
+    if steps is None:
+        steps = tval.uniaxial_sim(device="cpu").cfg.processes.n_fracture
+    world = meshes["slabs"].size
+    passes = cs.sim_lockstep(f"uniaxial_sim on {world} slabs", uniaxial,
+                             steps)
+    cs.log(f"[spatial4] (e) lifecycle passes on the NCCL mesh in {steps} "
+           f"steps: " + ", ".join(f"{k} {v:.3f} s"
+                                  for k, v in sorted(passes.items())))
+    if not passes:
+        raise AssertionError(f"(e): no lifecycle pass ran in {steps} steps")
+    return passes
 
 
 def dryrun_pack(mesh) -> None:
@@ -274,7 +315,10 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--floes", type=int, default=cs.N_FLOES)
     ap.add_argument("--steps", type=int, default=cs.SPATIAL_STEPS)
-    ap.add_argument("--sim-steps", type=int, default=60)
+    ap.add_argument("--sim-steps", type=int, default=None,
+                    help="(e)'s depth; by default its first fracture step")
+    ap.add_argument("--phases", default="bcde",
+                    help="which of (b)-(e) to run, e.g. 'e'")
     args = ap.parse_args()
     if args.rank_main:
         run_rank(args)

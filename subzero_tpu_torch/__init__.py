@@ -14,7 +14,8 @@ wrapper uses its plain PyTorch version.
 Ported: everything the JAX package does — the ``Simulation`` driver
 (``sim.py``) with its figures (``plotting.py``), the lifecycle boundary and
 its passes (``processes/``), the Eulerian diagnostics, the Voronoi initial
-state, the validation cases, the whole geometry surface, the serial oracle
+state, the validation cases and their campaign (``campaign.py``), the whole
+geometry surface, the serial oracle
 (``oracle.py``) and the multi-device spatial decomposition (``parallel/``,
 on ``torch.distributed``) — at every contact and broad-phase option of the
 JAX step.

@@ -1,7 +1,7 @@
 """Eulerian coarse-graining and scalar diagnostics.
 
 Port of ``subzero_tpu/diagnostics.py`` (``calc_eulerian_data.m``):
-mass-weighted averages of floe fields over an Ny x Nx cell grid using exact
+mass-weighted averages of floe fields over an Ny x Nx cell grid using
 polygon-cell intersection areas, plus the total-mass series
 (``Subzero.m:294-295``) and the dissolved-mass binning
 (``calc_dissolved_mass.m``).
@@ -13,29 +13,37 @@ polygon-cell intersection areas, plus the total-mass series
   the largest live ``rmax``; the driver's per-step accumulation passes the
   window it sized once per chunk (a floe's ``rmax`` changes only at
   lifecycle boundaries).
-* The floe∩cell areas go through the aggregate clip,
-  ``kernels.clip.clip_stats``: the Hopper kernel on CUDA tensors, the plain
-  ``clip_integral_bm`` on CPU tensors.  The cells are CCW rectangles of 4
-  vertices (no padding slot needed) in each floe's own frame.
+* The floe∩cell areas go through the segment-midpoint clip,
+  ``geometry.clip.overlap_stats`` (plain PyTorch on both devices, chunked
+  over pairs), the counterpart of the JAX package's ``_overlap_one``, so
+  the fields reproduce JAX's ``eulerian_data`` on both of its paths.  That
+  clip loses area next to collinear edges (floe edges lying on cell edges,
+  ROADMAP §C): the fault is the reference's and is kept for parity.  The
+  cells are CCW rectangles of 4 vertices (no padding slot needed), in each
+  floe's own frame or, as JAX's traced path has them, in the world frame.
+  Only the pairs whose bounding circles meet are clipped; the others'
+  areas are 0 in both packages.
 * The floe->cell sums are ``index_add_`` (float atomics on CUDA: equal to
   the serial sum within rounding, not bit for bit).
 * Boundary floes are excluded from the averages, and the cell area is
   reduced by the exact area of the boundary floes' union in the cell
   (host-side, native engine).  Inside the JAX driver's traced chunk that
   host call is impossible and the JAX function subtracts the per-floe sum
-  instead; ``exact_boundary=False`` reproduces that, and the port's driver
-  passes it where the JAX driver traces.
+  instead, and its dense path clips in the world frame;
+  ``exact_boundary=False`` reproduces both, and the port's driver passes it
+  where the JAX driver traces.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .config import SimConfig
-from .kernels.clip import clip_stats
+from .geometry.clip import overlap_stats
 from .state import FloeState
 
 __all__ = ["EulerianData", "cell_grid", "cell_window", "eulerian_data",
@@ -95,9 +103,16 @@ def cell_window(state: FloeState, cfg: SimConfig, nx: int,
 
 
 def _eulerian_sums(state: FloeState, cfg: SimConfig, nx: int, ny: int,
-                   wx: int, wy: int, fields, m_over_a, is_b):
+                   wx: int, wy: int, fields, m_over_a, is_b,
+                   world_frame: bool = False):
     """Per-cell sums via floe->cell scatter: each floe clips only against
     the wx x wy window of cells around its home cell — O(N w^2) clips.
+
+    The clip's nudge scales with the pair's coordinates, so its collinear
+    edge loss depends on the frame.  By default each pair is clipped in the
+    floe's frame (JAX's concrete call); ``world_frame`` clips the floe at
+    its minimum image about the cell's centre against the cell, both in
+    the world frame, as JAX's traced path (``_cell_block_areas``) does.
 
     Returns [C, F+4]: weighted field sums, atot, a_bound, n_contrib,
     overlap_sum.
@@ -109,7 +124,6 @@ def _eulerian_sums(state: FloeState, cfg: SimConfig, nx: int, ny: int,
     dtype = state.x.dtype
     dev = state.x.device
     verts = state.verts_rot()                       # [N, V, 2] local
-    v = verts.shape[1]
     i32 = torch.int32
 
     # home cell (row 0 = north)
@@ -128,22 +142,56 @@ def _eulerian_sums(state: FloeState, cfg: SimConfig, nx: int, ny: int,
         valid = (state.alive[:, None] & (ix >= 0) & (ix < nx)
                  & (iy >= 0) & (iy < ny))
 
-    # cell rectangle at the UNWRAPPED index, in the floe-local frame (this
-    # makes the periodic minimum image automatic: the floe sees the tiling)
-    x0 = -lx + ix.to(dtype) * dxc - state.x[:, None]
-    y1 = ly - iy.to(dtype) * dyc - state.y[:, None]
-    y0 = y1 - dyc
-    x1 = x0 + dxc
-    rect = torch.stack([
-        torch.stack([x0, y0], -1), torch.stack([x1, y0], -1),
-        torch.stack([x1, y1], -1), torch.stack([x0, y1], -1),
-    ], dim=-2)                                       # [N, K, 4, 2]
-
     k = wy * wx
-    p = verts[:, None].expand(n, k, v, 2).reshape(n * k, v, 2)
-    stats = clip_stats(p, rect.reshape(n * k, 4, 2), difference=False)
-    areas = torch.clamp(stats.area, min=0.0).reshape(n, k)
-    areas = torch.where(valid, areas, torch.zeros_like(areas))   # [N, K]
+    flat = ((iy % ny) * nx + (ix % nx)).long()       # [N, K]
+    rmax = state.rmax[:, None]
+    if world_frame:
+        cells, centers, _ = cell_grid(cfg, nx, ny)
+        cells = torch.as_tensor(cells, dtype=dtype, device=dev)
+        centers = torch.as_tensor(centers, dtype=dtype, device=dev)
+        pos = torch.stack([state.x, state.y], dim=-1)
+        ctr = centers[flat]                          # [N, K, 2]
+        dxy = ctr - pos[:, None, :]
+        if cfg.processes.periodic:
+            ll = torch.tensor([lx, ly], dtype=dtype, device=dev)
+            eff_pos = pos[:, None, :] + 2.0 * ll * torch.round(
+                dxy / (2.0 * ll))
+        else:
+            eff_pos = pos[:, None, :].expand(n, k, 2)
+        rect = cells[flat]                           # [N, K, 4, 2]
+        # JAX's bounding-circle mask, which zeroes the other pairs' areas
+        r_cell = torch.sqrt(torch.sum((cells[:, 2] - cells[:, 0]) ** 2,
+                                      dim=-1)) / 2
+        d2 = torch.sum((eff_pos - ctr) ** 2, dim=-1)
+        near = d2 < (rmax + r_cell[flat]) ** 2
+    else:
+        # cell rectangle at the UNWRAPPED index, in the floe-local frame
+        # (this makes the periodic minimum image automatic: the floe sees
+        # the tiling)
+        x0 = -lx + ix.to(dtype) * dxc - state.x[:, None]
+        y1 = ly - iy.to(dtype) * dyc - state.y[:, None]
+        y0 = y1 - dyc
+        x1 = x0 + dxc
+        rect = torch.stack([
+            torch.stack([x0, y0], -1), torch.stack([x1, y0], -1),
+            torch.stack([x1, y1], -1), torch.stack([x0, y1], -1),
+        ], dim=-2)                                   # [N, K, 4, 2]
+        # A pair whose bounding circles stay apart by more than twice the
+        # clip's nudge (sqrt(eps) x the pair's coordinate scale) has no
+        # probe inside the other polygon: its area is exactly 0.
+        d = torch.sqrt((x0 + 0.5 * dxc) ** 2 + (y0 + 0.5 * dyc) ** 2)
+        reach = rmax + 0.5 * math.hypot(dxc, dyc)
+        nudge = math.sqrt(torch.finfo(dtype).eps) * (d + reach + 1.0)
+        near = d < reach + 4.0 * nudge + 1.0
+    # clip only the valid pairs that can overlap (the others' areas are 0),
+    # in chunks of the segment-midpoint clip; one device->host sync on CUDA
+    pick = torch.nonzero((valid & near).reshape(-1)).squeeze(1)
+    p = verts[torch.div(pick, k, rounding_mode="floor")]
+    if world_frame:
+        p = p + eff_pos.reshape(n * k, 2)[pick][:, None, :]
+    stats = overlap_stats(p, rect.reshape(n * k, 4, 2)[pick])
+    areas = torch.zeros(n * k, dtype=dtype, device=dev).index_copy_(
+        0, pick, torch.clamp(stats.area, min=0.0)).reshape(n, k)
 
     zero = torch.zeros_like(areas)
     a_floe = torch.where(is_b[:, None], zero, areas)
@@ -152,7 +200,7 @@ def _eulerian_sums(state: FloeState, cfg: SimConfig, nx: int, ny: int,
     contrib = (a_floe > 0).to(dtype)
     over = contrib * state.overlap_area[:, None]
 
-    flat = ((iy % ny) * nx + (ix % nx)).reshape(-1).long()   # [N*K]
+    flat = flat.reshape(-1)                          # [N*K]
     n_f = fields.shape[1]
     # [N, K, F+4] contributions -> scatter-add into [C, F+4]
     contribs = torch.cat([
@@ -212,8 +260,9 @@ def eulerian_data(state: FloeState, cfg: SimConfig, nx: int = 10,
 
     ``window``: the (wx, wy) cell window of ``cell_window``; None sizes it
     from this state (one device->host copy).  ``exact_boundary``: subtract
-    the exact boundary-floe union from the cell area (host-side); False
-    subtracts the per-floe sum, as the JAX function does inside a trace.
+    the exact boundary-floe union from the cell area (host-side), as the
+    JAX function's concrete call does; False reproduces its traced path,
+    which subtracts the per-floe sum and clips in the world frame.
     """
     cells, _, cell_area = cell_grid(cfg, nx, ny)
     n = state.n
@@ -236,7 +285,8 @@ def eulerian_data(state: FloeState, cfg: SimConfig, nx: int = 10,
 
     wx, wy = window if window is not None else cell_window(state, cfg, nx,
                                                            ny)
-    out = _eulerian_sums(state, cfg, nx, ny, wx, wy, fields, m_over_a, is_b)
+    out = _eulerian_sums(state, cfg, nx, ny, wx, wy, fields, m_over_a, is_b,
+                         world_frame=not exact_boundary)
     sums = out[:, :n_f]
     atot = out[:, n_f]
     a_bound_tot = out[:, n_f + 1]

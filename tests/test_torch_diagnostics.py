@@ -2,7 +2,7 @@
 dissolved-ice advection against the JAX package's, float64 on the CPU.
 
 The port keeps one reduction path (each floe clipped against its window of
-cells, through the aggregate clip); the JAX package has two, the
+cells, through the segment-midpoint clip); the JAX package has two, the
 host-windowed scatter (a concrete call) and the dense block path (under a
 trace).  The port must equal both: ``exact_boundary=True`` against the
 concrete call, ``exact_boundary=False`` against the traced one (which
@@ -12,7 +12,8 @@ the seam, walled with floes across the walls, topography floes
 (``n_boundary > 0``) that overlap each other, and the t=0 Voronoi field,
 whose floe edges lie on the Eulerian cell edges.  Last, the port driver's
 mass ledger (floes + dissolved + exported) over 1000 thermo-off steps,
-within 1e-9 relative.
+within 1e-9 relative, and the reference's area loss next to cell edges,
+which the port reproduces.
 """
 
 from __future__ import annotations
@@ -271,14 +272,16 @@ def test_mass_ledger_closes_over_1000_steps():
     assert int(sim.state.alive.sum()) > 8          # corner pieces were born
 
 
-def test_eulerian_area_exact_where_the_reference_clip_is_not():
-    # A fault of the reference (ROADMAP §C): two steps into the out-of-box
-    # recipe (seed 1, corners off) the floes along the walls still lie
-    # almost on the Eulerian cell edges, and the JAX package's
-    # segment-midpoint clip (geometry/clip.py _overlap_one, both reduction
-    # paths) misses millions of m^2 of a 4e8 m^2 cell.  The port's
-    # parity-integral clip matches the native engine's exact floe∩cell
-    # areas within 1e-9 of the cell area.
+def test_eulerian_area_loss_is_the_reference_s():
+    # A fault of the reference, kept in the port for parity (ROADMAP §C):
+    # two steps into the out-of-box recipe (seed 1, corners off) the floes
+    # along the walls still lie almost on the Eulerian cell edges, and the
+    # segment-midpoint clip (geometry/clip.py _overlap_one in both
+    # packages) misses millions of m^2 of a 4e8 m^2 cell against the native
+    # engine's exact floe∩cell areas; how much depends on the frame each
+    # path clips in.  The port's fields equal JAX's concrete ones, and with
+    # exact_boundary=False its traced ones, within 1e-9 of the cell area,
+    # and all four miss the exact areas by more than 1e6 m^2.
     from subzero_tpu.native import poly_area, poly_boolean
     from subzero_tpu.state import FloeState
     from subzero_tpu_torch.config import ProcessConfig as TProc
@@ -303,9 +306,12 @@ def test_eulerian_area_exact_where_the_reference_clip_is_not():
                                                 "int"))
                       for c in range(100)]).reshape(10, 10)
     port = tdiag.eulerian_data(pst, pcfg, 10, 10).area.numpy()
-    assert np.max(np.abs(port - exact)) < 1e-9 * cell_area
+    port_traced = tdiag.eulerian_data(pst, pcfg, 10, 10,
+                                      exact_boundary=False).area.numpy()
     concrete = np.asarray(jdiag.eulerian_data(jst, jcfg, 10, 10).area)
     traced = np.asarray(jax.jit(
         lambda s: jdiag.eulerian_data(s, jcfg, 10, 10))(jst).area)
-    assert np.max(np.abs(concrete - exact)) > 1e6
-    assert np.max(np.abs(traced - exact)) > 1e6
+    assert np.max(np.abs(port - concrete)) < 1e-9 * cell_area
+    assert np.max(np.abs(port_traced - traced)) < 1e-9 * cell_area
+    for got in (port, port_traced, concrete, traced):
+        assert np.max(np.abs(got - exact)) > 1e6
