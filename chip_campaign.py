@@ -5,6 +5,7 @@ cases side by side:
     python3 chip_campaign.py [case ...] [--budget=SECONDS] [--resume]
                              [--copy=DIR] [--keep=STEP,...] [--steps=N]
                              [--device=...] [--dtype=...]
+                             [--contact-impl=pallas|integral|xla]
 
 Each case runs in a process of its own on the same card (the eager step
 and the host lifecycle leave the card idle most of the time, so the cases
@@ -13,7 +14,10 @@ share it); ``nares`` is followed by ``nares_leg`` in the same slot.  At
 so the export leg ends at its next leg boundary with its summary; a case
 still running 300 s later is killed and resumes from its latest snapshot
 with ``--resume``.  ``--resume``, ``--steps``, ``--device`` and ``--dtype``
-are passed on to the cases.  The kernels are built once before the cases start.
+are passed on to the cases.  ``--contact-impl`` runs every case under that
+``NumericsConfig.contact_impl`` (through ``campaign.main``'s keyword: the
+campaign's command line has no such option).  The kernels are built once
+before the cases start.
 
 Each case's output goes to its log, ``<copy>/<case>.log`` (default
 ``validation/out_torch/summary``); its mass series, ledger baseline,
@@ -44,13 +48,15 @@ def main(argv) -> int:
         print("chip_campaign: CUDA is not available", file=sys.stderr)
         return 2
     from subzero_tpu_torch import campaign
-    from subzero_tpu_torch.kernels.clip import build
+    from subzero_tpu_torch.kernels import clip, clip_pallas
     from subzero_tpu_torch.native import poly_area
 
     budget, copy, flags = 2400.0, campaign.OUT / "summary", []
-    keep = set()
+    keep, impl = set(), None
     for a in argv:
-        if a.startswith("--budget="):
+        if a.startswith("--contact-impl="):
+            impl = a.split("=", 1)[1]
+        elif a.startswith("--budget="):
             budget = float(a.split("=", 1)[1])
         elif a.startswith("--copy="):
             copy = Path(a.split("=", 1)[1])
@@ -68,13 +74,18 @@ def main(argv) -> int:
                          text=True, timeout=60, check=True)
     print(f"[campaign] {smi.stdout.strip().splitlines()[0]}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    build()                     # once, before the cases start
+    clip.build()                # once, before the cases start
+    clip_pallas.build()
     poly_area([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
     copy.mkdir(parents=True, exist_ok=True)
     stop = campaign.OUT / "nares" / "STOP"
     stop.unlink(missing_ok=True)
     env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "subzero_tpu_torch.campaign"]
+    if impl:
+        cmd = [sys.executable, "-c",
+               "import sys; from subzero_tpu_torch.campaign import main; "
+               f"sys.exit(main(sys.argv[1:], contact_impl={impl!r}))"]
     slots = {}
     for name in names:
         chain = [[*cmd, name, *flags]]

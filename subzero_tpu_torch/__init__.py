@@ -3,8 +3,10 @@
 A second package beside the JAX one, with the same module layout and public
 names so that each function's counterpart is easy to find.  Plain tensor
 code is PyTorch; the parity-integral clip, the one Pallas TPU kernel of the
-JAX package, is a CUDA C++ kernel written for Hopper (``csrc/clip.cu``,
-bound in ``kernels/clip.py``).
+JAX package, is a CUDA C++ kernel written for Hopper
+(``csrc/clip_pallas.cu``, bound in ``kernels/clip_pallas.py``), and so is
+its XLA twin, the default contact clip (``csrc/clip.cu``,
+``kernels/clip.py``).
 
 The port imports nothing of ``subzero_tpu`` (its numpy helpers and config
 are copied).  Entry points run on the GPU (``device="cuda"``) unless the

@@ -72,14 +72,16 @@ LEG = 1_500            # = n_dt_out snapshot cadence
 @dataclasses.dataclass
 class Campaign:
     """Where and how the cases run: the output root, whether to resume,
-    the device and dtype handed to the builders, and the output cadence
-    (None keeps each case's own)."""
+    the device and dtype handed to the builders, the output cadence (None
+    keeps each case's own) and the contact clip (None keeps the builders'
+    ``contact_impl``)."""
 
     out: Path = OUT
     resume: bool = False
     device: "str | None" = None
     dtype: "str | None" = None
     n_dt_out: "int | None" = None
+    contact_impl: "str | None" = None
 
     def case_dir(self, name: str) -> Path:
         d = Path(self.out) / name
@@ -94,6 +96,9 @@ class Campaign:
         if cadence:
             sim.cfg = sim.cfg.replace(processes=dataclasses.replace(
                 sim.cfg.processes, n_dt_out=cadence))
+        if self.contact_impl:
+            sim.cfg = sim.cfg.replace(numerics=dataclasses.replace(
+                sim.cfg.numerics, contact_impl=self.contact_impl))
         sim.output_dir = self.case_dir(name)
         sim.plot_output = _can_plot()
         return sim
@@ -173,6 +178,8 @@ def _summarize(name: str, sim, t_wall: float, camp: Campaign,
         f"(peak pool demand {getattr(sim, 'region_pool_need_max', 0)} "
         "pair slots)",
     ]
+    if camp.contact_impl:
+        lines.append(f"- contact_impl: {camp.contact_impl}")
     if extra:
         lines += [f"- {k}: {v}" for k, v in extra.items()]
     with open(Path(camp.out) / "RESULTS.md", "a") as f:
@@ -448,9 +455,12 @@ DEFAULT_STEPS = {
 ENTRIES = {**CASES, "nares_leg": run_nares_leg}
 
 
-def main(argv: "list[str]") -> int:
+def main(argv: "list[str]", contact_impl: "str | None" = None) -> int:
+    """The command line's entry; ``contact_impl`` (no option of the command
+    line, as JAX's run_cases.py has none) runs every case under that
+    ``NumericsConfig.contact_impl``."""
     names = [a for a in argv if not a.startswith("--")] or list(CASES)
-    camp = Campaign(resume="--resume" in argv)
+    camp = Campaign(resume="--resume" in argv, contact_impl=contact_impl)
     steps_override = None
     for a in argv:
         if a.startswith("--steps="):

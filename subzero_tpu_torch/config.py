@@ -292,9 +292,11 @@ class NumericsConfig:
     # Cell size for the cell-list broad phase; must be >= 2*max(rmax).
     cell_size: float = 0.0
     # Contact geometry implementation: "integral" (closed-form
-    # parity-integral clip, XLA-fused), "pallas" (same math as one fused
-    # Pallas TPU kernel, float32/TPU only), or "xla" (segment-midpoint
-    # formulation, the original reference implementation of the clip).
+    # parity-integral clip, the XLA twin; csrc/clip.cu on the card),
+    # "pallas" (the Pallas TPU kernel's own float32 math, a different
+    # function of the same pairs; csrc/clip_pallas.cu on the card, float32
+    # stats in any configuration), or "xla" (segment-midpoint formulation,
+    # the original reference implementation of the clip).
     contact_impl: str = "integral"
     # Spatial decomposition (1-D slab mesh): overlap the ghost-floe halo
     # exchange with interior contact compute (SURVEY.md section 7 M5).

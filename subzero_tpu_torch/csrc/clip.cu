@@ -1,15 +1,20 @@
 // Parity-integral polygon clip statistics — CUDA C++ kernel for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel subzero_tpu/geometry/clip_pallas.py:_clip_kernel
-// (called through _clip_pallas, clip_pallas.py:179).  For each pair of padded
-// CCW polygons P [B, Vp, 2] and Q [B, Vq, 2] it writes the area, centroid and
-// contact chord of P ∩ Q (or P \ Q) and the count of proper edge crossings,
-// without building the clipped polygon: every edge of each polygon is weighted
-// by the inside-the-other indicator integrals (I0, I1) on two carrier lines
-// offset by ±eps, and Green's theorem sums the weighted edges.  The math is the
-// written spec in subzero_tpu_torch/geometry/clip_integral.py (the plain
-// PyTorch version); this kernel evaluates every (P edge, Q edge) pair with the
-// same expressions in the same order.
+// The hand-written kernel of the XLA twin
+// subzero_tpu/geometry/clip_integral.py:clip_integral_bm ("integral", the
+// default contact_impl), which is XLA code in the JAX package and no TPU
+// kernel.  The Pallas TPU kernel clip_pallas.py:_clip_kernel computes another
+// float32 function of the same pairs and has its own Hopper kernel,
+// csrc/clip_pallas.cu.  For each pair of padded CCW polygons P [B, Vp, 2] and
+// Q [B, Vq, 2] this one writes the area, centroid and contact chord of P ∩ Q
+// (or P \ Q) and the count of proper edge crossings, without building the
+// clipped polygon: every edge of each polygon is weighted by the
+// inside-the-other indicator integrals (I0, I1) on two carrier lines offset by
+// ±eps, and Green's theorem sums the weighted edges.  The math is the written
+// spec in subzero_tpu_torch/geometry/clip_integral.py (the plain PyTorch
+// version); this kernel evaluates every (P edge, Q edge) pair with the same
+// expressions in the same order: each crossing once, the ±eps offsets as
+// linear corrections.
 //
 // What bounds it on this card.  Only edges of non-zero length do work (the
 // padding slots repeat vertex 0, and a zero-length edge adds nothing to any
@@ -21,25 +26,13 @@
 // comparisons and clamps, not a matrix product: tensor cores do not apply.
 //
 // What the design does about it.
-//   * Coalesced staging.  A block of kThreads threads takes a tile of Bt
-//     consecutive pairs, whose [Bt, Vp, 2] and [Bt, Vq, 2] rows are one
-//     contiguous span each, and copies both spans into shared memory with
-//     16-byte loads (element loads for a misaligned span or its tail).  No
-//     thread reads device memory inside the edge loops.  The grid is
-//     persistent (as many blocks as fit on the SMs, each walking tiles) and
-//     the last tile is masked.
-//   * Compacted real-edge lists.  One warp segment per pair reduces eps over
-//     all vertices, padding included, then writes each polygon's edges of
-//     non-zero length, in their original order, into shared memory (ballot and
-//     prefix count): x0, y0, dx = x1 - x0, dy = y1 - y0, with the pair's eps
-//     and real-edge counts beside them.  The edge loops then run over
-//     n_p x n_q real edge pairs instead of Vp x Vq slots.  Lists are stored
-//     [slot][pair] with a padded stride, so the lanes of a warp read
-//     consecutive entries without bank conflicts.  Each edge's eps factors
-//     ct_f, cs_f (a square root and a division) are computed once, by the
-//     lane that takes it as its outer edge, and kept in registers: stored in
-//     the lists they cost a third more shared memory, fewer resident blocks,
-//     and measured slower (PERF.md).
+//   * Coalesced staging and compacted real-edge lists (csrc/clip_tile.cuh,
+//     shared with clip_pallas.cu): the edge loops run over n_p x n_q real
+//     edge pairs instead of Vp x Vq slots.  Each edge's eps factors ct_f,
+//     cs_f (a square root and a division) are computed once, by the lane
+//     that takes it as its outer edge, and kept in registers: stored in the
+//     lists they cost a third more shared memory, fewer resident blocks, and
+//     measured slower (PERF.md).
 //   * Lane groups.  G lanes (a template parameter, 1..32) share a pair: in the
 //     P pass they take P's real edges in turn, each looping over Q's list in
 //     order; in the Q pass the other way round.  The per-lane Green sums and
@@ -57,90 +50,15 @@
 // plain version's operation order and the inner sums run in the original edge
 // order; only the order of the outer Green sums (split over G lanes) differs.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "clip_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // threads per block; Bt = kThreads / G pairs
-
-template <typename T>
-struct alignas(16) Edge {  // one real edge: start point and edge vector
-  T x0, y0, dx, dy;
-};
-
-// Dynamic shared memory of one block; kernels/clip.py:tile_bytes mirrors it.
-__host__ __device__ inline long long tile_bytes(int g, int vp, int vq,
-                                                int itemsize) {
-  const long long bt = kThreads / g, ld = bt + 1, v = vp + vq;
-  return bt * v * 2 * itemsize          // raw staged rows
-         + v * ld * 4 * itemsize        // Edge lists
-         + bt * itemsize                // eps per pair
-         + 2 * bt * 4;                  // real-edge counts per pair
-}
-
-template <typename T>
-__device__ __forceinline__ T clamp01(T v, T hi) {
-  return v < T(0) ? T(0) : (v > hi ? hi : v);
-}
-
-template <typename T>
-__device__ __forceinline__ T inv_len_of(T elen2) {
-  return elen2 > T(0) ? T(1) / sqrt(elen2) : T(0);
-}
-
-// Cooperative copy of n elements from device memory to shared memory: 16-byte
-// loads where the source is 16-byte aligned, element loads for the rest.
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
-                                      long long n) {
-  constexpr int kPer = 16 / sizeof(T);
-  long long head = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const long long nv = n / kPer;
-    for (long long c = threadIdx.x; c < nv; c += kThreads) {
-      *reinterpret_cast<int4*>(dst + c * kPer) =
-          __ldg(reinterpret_cast<const int4*>(src + c * kPer));
-    }
-    head = nv * kPer;
-  }
-  for (long long i = head + threadIdx.x; i < n; i += kThreads) {
-    dst[i] = __ldg(src + i);
-  }
-}
-
-// Compact one polygon's edges of non-zero length (in their original order)
-// into its [slot][pair] lists; run by the S lanes of one warp segment, all 32
-// lanes of the warp together.  Returns the real-edge count.
-template <typename T>
-__device__ __forceinline__ int compact(const T* r, int v, bool act, int s, int seg_lane, int seg_base,
-                                       Edge<T>* edges, int ld) {
-  const unsigned seg_mask =
-      s == 32 ? 0xffffffffu : (((1u << s) - 1u) << seg_base);
-  int count = 0;
-  for (int base = 0; base < v; base += s) {
-    const int i = base + seg_lane;
-    bool real = false;
-    T x0 = T(0), y0 = T(0), dx = T(0), dy = T(0);
-    if (act && i < v) {
-      const int in = (i + 1 == v) ? 0 : i + 1;
-      x0 = r[2 * i];
-      y0 = r[2 * i + 1];
-      dx = r[2 * in] - x0;
-      dy = r[2 * in + 1] - y0;
-      real = !(dx == T(0) && dy == T(0));
-    }
-    const unsigned mine =
-        (__ballot_sync(0xffffffffu, real) & seg_mask) >> seg_base;
-    if (real) {
-      const int slot = count + __popc(mine & ((1u << seg_lane) - 1u));
-      edges[slot * ld] = Edge<T>{x0, y0, dx, dy};
-    }
-    count += __popc(mine);
-  }
-  return count;
-}
+using clip_tile::Edge;
+using clip_tile::clamp01;
+using clip_tile::inv_len_of;
+using clip_tile::kThreads;
+using clip_tile::tile_bytes;
 
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
@@ -151,72 +69,22 @@ clip_kernel(const T* __restrict__ p, const T* __restrict__ q, long long b,
   constexpr int Bt = kThreads / G;
   constexpr int ld = Bt + 1;
   const long long ntiles = (b + Bt - 1) / Bt;
-  const int v = vp + vq;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* raw = reinterpret_cast<T*>(smem);
-  Edge<T>* ep = reinterpret_cast<Edge<T>*>(raw + Bt * v * 2);
-  Edge<T>* eq = ep + vp * ld;
-  T* eps_s = reinterpret_cast<T*>(eq + vq * ld);
-  int* np_s = reinterpret_cast<int*>(eps_s + Bt);
-  int* nq_s = np_s + Bt;
-
-  // Warp segments for compaction: S lanes per pair, S a power of two.
-  int s = 1;
-  while (s < 32 && s < (vp > vq ? vp : vq)) s <<= 1;
-  const int lane = threadIdx.x & 31;
-  const int seg_lane = lane & (s - 1);
-  const int seg_base = lane & ~(s - 1);
-  const int seg = threadIdx.x / s;
-  const int nseg = kThreads / s;
+  const clip_tile::Tile<T> tl = clip_tile::carve<T>(smem, Bt, ld, vp, vq);
   // Lane groups for the edge loops.
   const int t = threadIdx.x / G;
   const int g = threadIdx.x % G;
 
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    // ---- stage the tile's two contiguous spans
+    // ---- stage the tile, eps and the compacted real-edge lists
     const long long k0 = tile * Bt;
-    const long long nv = (b - k0 < Bt) ? b - k0 : Bt;
-    stage(raw, p + k0 * 2 * vp, nv * 2 * vp);
-    stage(raw + Bt * 2 * vp, q + k0 * 2 * vq, nv * 2 * vq);
-    __syncthreads();
+    clip_tile::load_tile(tl, p, q, b, k0, Bt, ld, vp, vq, eps_scale);
 
-    // ---- eps and the compacted real-edge lists, one warp segment per pair
-    const T* rp0 = raw;
-    const T* rq0 = raw + Bt * 2 * vp;
-    for (int it = 0; it * nseg < Bt; ++it) {
-      const int tt = seg + it * nseg;
-      const bool act = tt < Bt && k0 + tt < b;
-      const T* rp = rp0 + tt * 2 * vp;
-      const T* rq = rq0 + tt * 2 * vq;
-      // eps = max(max|coords of P and Q|, 1) * eps_T^(2/3), over all slots
-      T m = T(0);
-      if (act) {
-        for (int i = seg_lane; i < vp; i += s)
-          m = fmax(m, fmax(fabs(rp[2 * i]), fabs(rp[2 * i + 1])));
-        for (int j = seg_lane; j < vq; j += s)
-          m = fmax(m, fmax(fabs(rq[2 * j]), fabs(rq[2 * j + 1])));
-      }
-      for (int off = s >> 1; off > 0; off >>= 1)
-        m = fmax(m, __shfl_xor_sync(0xffffffffu, m, off));
-      const T eps = fmax(m, T(1)) * eps_scale;
-      const int ttc = tt < Bt ? tt : 0;  // inactive segments write nothing
-      const int n_p = compact(rp, vp, act, s, seg_lane, seg_base,
-                              ep + ttc, ld);
-      const int n_q = compact(rq, vq, act, s, seg_lane, seg_base,
-                              eq + ttc, ld);
-      if (seg_lane == 0 && tt < Bt) {
-        eps_s[tt] = eps;
-        np_s[tt] = n_p;
-        nq_s[tt] = n_q;
-      }
-    }
-    __syncthreads();
-
-    const int n_p = np_s[t], n_q = nq_s[t];
-    const T eps = eps_s[t];
-    const Edge<T>* lp = ep + t;
-    const Edge<T>* lq = eq + t;
+    const int n_p = tl.np[t], n_q = tl.nq[t];
+    const T eps = tl.eps[t];
+    const Edge<T>* lp = tl.ep + t;
+    const Edge<T>* lq = tl.eq + t;
 
     // ---- P edges against Q (+ proper crossing count) ----------------------
     T a_p = T(0), mx_p = T(0), my_p = T(0), chx = T(0), chy = T(0);
@@ -370,24 +238,11 @@ int launch_g(const T* p, const T* q, long long b, int vp, int vq,
              int* ncross, cudaStream_t stream) {
   auto kernel = clip_kernel<T, G>;
   const long long smem = tile_bytes(G, vp, vq, (int)sizeof(T));
-  // Set up on every launch, for the current device: no state is kept
-  // between launches, devices or host threads.
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
+  unsigned blocks = 0;
+  const cudaError_t err = clip_tile::persistent_grid(kernel, smem, b,
+                                                     kThreads / G, &blocks);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long ntiles = (b + kThreads / G - 1) / (kThreads / G);
-  long long blocks = (long long)per_sm * sms;
-  if (blocks > ntiles) blocks = ntiles;
-  kernel<<<(unsigned)blocks, kThreads, (size_t)smem, stream>>>(
+  kernel<<<blocks, kThreads, (size_t)smem, stream>>>(
       p, q, b, vp, vq, difference != 0, (T)eps_scale, area, cent, chord,
       ncross);
   return (int)cudaGetLastError();

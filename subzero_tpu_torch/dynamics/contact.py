@@ -39,21 +39,33 @@ from ..config import SimConfig
 from ..geometry.clip_batched import difference_stats_bm, overlap_stats_bm
 from ..geometry.regions import region_stats, reverse_polygons
 from ..kernels.clip import difference_stats, overlap_stats
+from ..kernels.clip_pallas import (
+    difference_stats_pallas, overlap_stats_pallas,
+)
 from .broadphase import NeighborTable
 
 
 def _clip_fns(cfg: SimConfig):
     """(overlap, difference) clip functions per cfg.numerics.contact_impl.
 
-    "integral" (default) and "pallas" name one math, the parity-integral
-    clip: the wrappers launch the CUDA kernel on CUDA tensors and run the
-    plain PyTorch version on CPU tensors.  No config value routes a CUDA
-    tensor to the plain parity-integral version.
+    "integral" (default): the XLA twin of the parity-integral clip
+    (geometry/clip_integral.py), in the configuration's dtype; the wrappers
+    launch csrc/clip.cu on CUDA tensors and run the plain version on CPU
+    tensors.
+    "pallas": the Pallas TPU kernel's math (geometry/clip_pallas.py), a
+    different float32 function of the same pairs; the wrappers cast to
+    float32 and launch csrc/clip_pallas.cu on CUDA tensors, run the plain
+    version on CPU tensors, and return float32 stats in any configuration,
+    as the JAX kernel does.
+    No config value routes a CUDA tensor to a plain version of either.
     "xla": the segment-midpoint clip in its batch-minor layout
     (geometry/clip_batched.py), plain PyTorch on both devices, as it is XLA
     code in the JAX package.
     """
-    if cfg.numerics.contact_impl == "xla":
+    impl = cfg.numerics.contact_impl
+    if impl == "pallas":
+        return overlap_stats_pallas, difference_stats_pallas
+    if impl == "xla":
         return overlap_stats_bm, difference_stats_bm
     return overlap_stats, difference_stats
 
@@ -131,12 +143,15 @@ def _pair_forces_flat(
     area_i, area_j,              # [P]
     shear_g, mu, dt,
     min_chord, merge_frac,
+    dtype,
     amin,                        # [P] small-region area cull threshold
     merge_ok,                    # [P] merge gate (floe_interactions.m:54)
     min_cross: int = 2,
     tang_reference: bool = True,
 ):
-    """Contact forces for a flat batch of polygon-pair overlap statistics."""
+    """Contact forces for a flat batch of polygon-pair overlap statistics,
+    cast to the configuration's ``dtype`` (the stats may be float32 in a
+    float64 configuration: contact_impl="pallas")."""
     ar = torch.clamp(st.area, min=0.0)
 
     chx, chy = st.chord_p[..., 0], st.chord_p[..., 1]
@@ -183,7 +198,8 @@ def _pair_forces_flat(
     syy = (py - yi) * fy
     sxy = 0.5 * ((px - xi) * fy + (py - yi) * fx)
 
-    return fx, fy, px, py, tq, sxx, syy, sxy, overlap, merge_i, merge_j
+    return (*(a.to(dtype) for a in (fx, fy, px, py, tq, sxx, syy, sxy,
+                                    overlap)), merge_i, merge_j)
 
 
 def _pair_forces_regions(
@@ -337,9 +353,12 @@ def _compact(flags: torch.Tensor, m: int):
 def _scatter(dst: torch.Tensor, sel: torch.Tensor,
              vals: torch.Tensor) -> torch.Tensor:
     """``dst`` with ``dst[sel] = vals``, where ``sel == len(dst)`` marks a
-    write that is dropped (it lands on a dummy row that is sliced off)."""
+    write that is dropped (it lands on a dummy row that is sliced off).
+    ``vals`` is cast to ``dst``'s dtype, as JAX's scatter casts: under
+    contact_impl="pallas" the wall contact's float32 contact point and
+    overlap take float64 region values."""
     ext = torch.cat([dst, dst[:1]])
-    return ext.index_put_((sel,), vals)[:-1]
+    return ext.index_put_((sel,), vals.to(dst.dtype))[:-1]
 
 
 def _shared_decision(overflow, need, axis_names: tuple):
@@ -581,7 +600,7 @@ def contact_forces(
             uj_m, vj_k_m, ksij_m, xj_m, yj_m,
             ff_m, area[i_s], area_s[j_s],
             shear_g, phys.mu_friction, dt,
-            cfg.contact.min_chord, cfg.contact.merge_overlap_frac,
+            cfg.contact.min_chord, cfg.contact.merge_overlap_frac, dtype,
             amin=amin_m, merge_ok=mok_m,
             min_cross=cfg.contact.min_crossings,
             tang_reference=tang_ref,
@@ -644,7 +663,7 @@ def contact_forces(
                 fl(area[:, None].expand(n, k)),
                 fl(area_s[j]),
                 shear_g, phys.mu_friction, dt,
-                cfg.contact.min_chord, cfg.contact.merge_overlap_frac,
+                cfg.contact.min_chord, cfg.contact.merge_overlap_frac, dtype,
                 amin=fl(amin),
                 merge_ok=fl(merge_ok),
                 min_cross=cfg.contact.min_crossings,
@@ -812,7 +831,7 @@ def boundary_contact(
 
     return BoundaryContact(
         fx=fx, fy=fy, px=px + x, py=py + y, tq=tq,
-        sxx=sxx, syy=syy, sxy=sxy, overlap=overlap,
+        sxx=sxx, syy=syy, sxy=sxy, overlap=overlap.to(dtype),
         absorb=alive & absorb, out=out,
         region_overflow=b_region_overflow,
         region_need=b_region_need,

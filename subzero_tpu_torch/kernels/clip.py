@@ -3,9 +3,11 @@
 ``overlap_stats(p, q)`` / ``difference_stats(p, q)`` take ``[B, Vp, 2]`` and
 ``[B, Vq, 2]`` polygon pairs and return ``OverlapStats``:
 
-* on CUDA tensors they launch the kernel of ``csrc/clip.cu`` (replacing the
-  Pallas TPU kernel ``subzero_tpu/geometry/clip_pallas.py:_clip_kernel``),
-  or raise — there is no fallback;
+* on CUDA tensors they launch the kernel of ``csrc/clip.cu``, the
+  hand-written kernel of the XLA twin
+  ``subzero_tpu/geometry/clip_integral.py:clip_integral_bm`` (XLA code in
+  the JAX package, no TPU kernel: the Pallas kernel's math has its own
+  kernel, ``kernels/clip_pallas.py``), or raise — there is no fallback;
 * on CPU tensors they run the plain PyTorch version,
   ``geometry/clip_integral.clip_integral_bm``.
 
@@ -48,6 +50,7 @@ __all__ = [
     "clip_stats_cuda",
     "build",
     "compile_source",
+    "load_library",
     "lane_group",
     "tile_bytes",
 ]
@@ -88,11 +91,13 @@ def _nvcc() -> str:
 
 def compile_source(source: Path) -> tuple[Path, bool, str]:
     """Compile ``source`` with ``NVCC_FLAGS`` into a shared library under
-    ``BUILD_DIR``, once per hash of source and flags.  Returns the library
-    path, whether it was compiled by this call, and nvcc's ``-Xptxas -v``
-    report (kept beside the library)."""
+    ``BUILD_DIR``, once per hash of source, the headers beside it and flags.
+    Returns the library path, whether it was compiled by this call, and
+    nvcc's ``-Xptxas -v`` report (kept beside the library)."""
     source = Path(source)
-    key = hashlib.sha256(source.read_bytes()
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(source.parent.glob("*.cuh")))
+    key = hashlib.sha256(source.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     so = BUILD_DIR / f"{source.stem}-{key[:16]}.so"
     if so.exists():
@@ -115,32 +120,39 @@ def compile_source(source: Path) -> tuple[Path, bool, str]:
     return so, True, log
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library.
+def load_library(source: Path, argtypes: dict, info: dict) -> ctypes.CDLL:
+    """Compile ``source`` (``compile_source``) and load it with ``ctypes``,
+    declaring ``argtypes[name]`` (and an int return) for each function.
+    Fills ``info`` with the library path, whether it was compiled in this
+    process, the seconds that took and nvcc's ``-Xptxas -v`` report."""
+    t0 = time.perf_counter()
+    so, compiled, log = compile_source(source)
+    lib = ctypes.CDLL(str(so))
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
+    info.update(path=str(so), compiled=compiled,
+                seconds=time.perf_counter() - t0, log=log)
+    return lib
 
-    Fills ``build_info`` with the library path, whether it was compiled in
-    this process, the seconds that took and nvcc's ``-Xptxas -v`` report.
-    """
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library; fills
+    ``build_info`` (``load_library``)."""
     global _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        t0 = time.perf_counter()
-        so, compiled, log = compile_source(SOURCE)
-        lib = ctypes.CDLL(str(so))
-        for name in ("clip_stats_f32", "clip_stats_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [
+        if _lib is None:
+            types = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ]
-            fn.restype = ctypes.c_int
-        build_info.update(path=str(so), compiled=compiled,
-                          seconds=time.perf_counter() - t0, log=log)
-        _lib = lib
-        return lib
+            _lib = load_library(SOURCE, {"clip_stats_f32": types,
+                                         "clip_stats_f64": types},
+                                build_info)
+        return _lib
 
 
 def tile_bytes(g: int, vp: int, vq: int, itemsize: int) -> int:

@@ -1,6 +1,6 @@
-"""The Hopper clip kernel (``subzero_tpu_torch/csrc/clip.cu``) and its
-wrapper.  This file imports no JAX, so the card test runs on a machine
-without it:
+"""The Hopper clip kernels and their wrappers: ``csrc/clip.cu`` (the XLA
+twin's clip) and ``csrc/clip_pallas.cu`` (the Pallas kernel's).  This file
+imports no JAX, so the card tests run on a machine without it:
 
     python -m pytest tests/test_torch_kernels.py -q --noconftest
 
@@ -15,10 +15,14 @@ import pytest
 import torch
 
 from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
+from subzero_tpu_torch.geometry.clip_pallas import _clip_pallas
 from subzero_tpu_torch.geometry.polygon import pad_polygons
 from subzero_tpu_torch.kernels import clip as kclip
+from subzero_tpu_torch.kernels import clip_pallas as kpallas
 
-from chip_smoke import degenerate_pairs, one_past_tile, with_duplicates
+from chip_smoke import (
+    coastline_pair, degenerate_pairs, one_past_tile, with_duplicates,
+)
 
 torch.set_num_threads(1)
 
@@ -145,3 +149,52 @@ def _hold_on_card(p, q, dtype):
         assert float((got.area - want.area).abs().max()) <= tol_area
         assert float((got.chord_p - want.chord_p).abs().max()) <= tol_chord
         assert torch.equal(got.n_cross, want.n_cross)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,vp,vq", [(4096, 16, 16), (1000, 16, 8)])
+def test_pallas_kernel_matches_plain_on_card(b, vp, vq):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    pt, qt = (torch.from_numpy(x).to("cuda", torch.float32)
+              for x in pairs(b, seed=b + vp + 1, vp=vp, vq=vq))
+    for difference in (False, True):
+        got = kpallas.clip_pallas_cuda(pt, qt, difference)
+        want = _clip_pallas(pt, qt, difference)
+        torch.cuda.synchronize()
+        scale = float(want.area.abs().max())
+        assert float((got.area - want.area).abs().max()) <= 1e-5 * scale
+        assert float((got.chord_p - want.chord_p).abs().max()) <= 1e-2
+        assert torch.equal(got.n_cross, want.n_cross)
+
+
+@pytest.mark.cuda
+def test_pallas_kernel_on_coastline_pair():
+    """The float32 nares_export floe and coastline: no overlap, as the JAX
+    kernel reports, where clip.cu's XLA twin reports 9.31e8 m²."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    p, q = (torch.from_numpy(x).to("cuda") for x in coastline_pair())
+    got = kpallas.overlap_stats_pallas(p, q)             # float64 in
+    assert got.area.dtype == torch.float32
+    assert float(got.area[0]) == 0.0
+    twin = kclip.clip_stats_cuda(p.float(), q.float(), False)
+    assert float(twin.area[0]) > 9e8
+
+
+def test_pallas_module_serves_cpu_without_building(monkeypatch):
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernel")
+
+    monkeypatch.setattr(kpallas, "build", no_build)
+    p, q = pairs(13, seed=0)
+    pt, qt = torch.from_numpy(p), torch.from_numpy(q)
+    before = kpallas.clip_pallas_cuda.launches
+    got = kpallas.overlap_stats_pallas(pt, qt)
+    want = _clip_pallas(pt, qt, False)
+    assert got.area.dtype == torch.float32
+    assert torch.equal(got.area, want.area)
+    assert torch.equal(got.n_cross, want.n_cross)
+    assert kpallas.clip_pallas_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        kpallas.clip_pallas_cuda(pt.float(), qt.float(), False)
