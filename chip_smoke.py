@@ -32,9 +32,12 @@ prints no result):
    bounds, on the quad lattice's first-step overlap (81,920x16x16) and
    wall (10,240x16x8) pairs, the stars' active-pair pool batch
    (53,120x16x16), 4,096x64x64 and the default capacity (plain on its
-   first 16,384 pairs), each timed, then phase 2's small and degenerate
-   cases, both clips; on the nares_export coastline pair its overlap must
-   be 0 (as JAX's kernel reports) or within 1e-5 of the floe's area.
+   first 16,384 pairs), each timed, with a line per shape giving the kernel
+   alone on the card, its bound and share, clip.cu alone on the same
+   inputs, their ratio, the lane group G and ptxas's registers and spills;
+   then phase 2's small and degenerate cases, both clips; on the
+   nares_export coastline pair its overlap must be 0 (as JAX's kernel
+   reports) or within 1e-5 of the floe's area.
    (b) Phase 4's aggregate periodic and (a) default walled quad lattices
    under "pallas", one warm-up and 30 timed steps: floe-steps/s, CUDA-event
    phase times and peak memory; with both launch counters zeroed just
@@ -606,13 +609,20 @@ def time_kernel(name, a, b, diff, plain_on=None, pallas=False):
     n = plain_on or a.shape[0]
     plain = cuda_ms(lambda: plain_fn(a[:n], b[:n], diff), reps=5)
     bound, by, nbytes, flops = clip_bound_ms(a, b)
-    g = kclip.lane_group(a.shape[0], a.shape[1], b.shape[1])
-    log(f"[time] {name}: B={a.shape[0]} Vp={a.shape[1]} Vq={b.shape[1]} "
+    vp, vq = a.shape[1], b.shape[1]
+    if pallas:
+        from subzero_tpu_torch.kernels import clip_pallas as kpallas
+
+        g = kpallas.lane_group(a.shape[0], vp, vq)
+        smem = kclip.tile_bytes(g, vp, vq, 4)
+    else:
+        g = kclip.lane_group(a.shape[0], vp, vq)
+        smem = kclip.tile_bytes(g, vp, vq, a.element_size())
+    log(f"[time] {name}: B={a.shape[0]} Vp={vp} Vq={vq} "
         f"G={g}  kernel {ms:.4f} ms  plain {plain:.4f} ms"
         + (f" (on {n} pairs)" if plain_on else "")
         + f"  bound {bound:.4f} ms ({by}: {nbytes} B, {flops:.4g} flop)  "
-        f"share of bound {bound / ms:.1%}  smem/block "
-        f"{kclip.tile_bytes(g, a.shape[1], b.shape[1], a.element_size())} B")
+        f"share of bound {bound / ms:.1%}  smem/block {smem} B")
     log(f"[time] {name}: card alone {card:.4f} ms (share of bound "
         f"{bound / card:.1%}), wrapper host {host_us:.1f} us per call")
     return ms, plain, bound, by
@@ -655,6 +665,72 @@ PALLAS_TOL_POS = 1e-2     # m: phase 2b (c), CPU against CUDA under "pallas"
 PALLAS_TOL_VEL = 1e-3     # m/s
 
 
+def pallas_shapes(built):
+    """Phase 2b's five timed shapes, float32 on the card, as ``[(label, p,
+    q, difference, plain_on)]``: the quad lattice's first-step overlap and
+    wall pairs, the stars' active-pair pool batch (from ``built``, the
+    return of ``main_path_runs``), 4,096 x 64 x 64 and the default capacity
+    (the plain version on its first 16,384 pairs)."""
+    import torch
+
+    from subzero_tpu_torch.dynamics import contact as tcontact
+    from subzero_tpu_torch.dynamics.broadphase import neighbor_candidates
+    from subzero_tpu_torch.dynamics.step import domain_polygon
+
+    runs, (stars, _, cfg_pool, slx) = built
+
+    def on_card(*arrays):
+        return [torch.from_numpy(x).to(stars.device, torch.float32)
+                for x in arrays]
+
+    _, quads, _, cfg_p = runs[0]
+    p, q, fw, wq = main_path_pairs(quads, cfg_p)
+    nbr = neighbor_candidates(stars.x, stars.y, stars.rmax, stars.alive, 8,
+                              True, slx, slx)
+    (pp, pq), = captured_clip_inputs(lambda: tcontact.contact_forces(
+        stars.verts_world(), stars.x, stars.y, stars.u, stars.v, stars.ksi,
+        stars.h, stars.area, nbr, MODULUS, cfg_pool, nv=stars.nv,
+        domain_verts=domain_polygon(cfg_pool, device=stars.device)))
+    return [("main-path overlap", p, q, False, None),
+            ("main-path wall difference", fw, wq, True, None),
+            ("pair-pool batch", pp, pq, False, None),
+            ("wide 64x64", *on_card(*random_pairs(4096, 64, 64,
+                                                  seed=4096 + 128)),
+             False, None),
+            ("default capacity", *on_card(*random_pairs(
+                163840, 64, 64, seed=11, nv_range=(10, 30))), False, 16384)]
+
+
+def ptxas_of(log_text, name):
+    """(registers, spill stores B, spill loads B) of kernel instance
+    ``name`` (as ``ptxas_instances`` names it) in an nvcc report."""
+    r = next((r for r in ptxas_instances(log_text) if r["name"] == name), {})
+    return r.get("regs"), r.get("spill_st"), r.get("spill_ld")
+
+
+def beside_clip_cu(label, a, b, diff):
+    """Phase 2b's line per timed shape: clip_pallas.cu alone on the card
+    (``card_ms``), its bound and share, clip.cu alone on the same inputs
+    in the same call, their ratio, each kernel's lane group G and ptxas's
+    registers and spills for that instance.  clip.cu's arithmetic and lane
+    groups do not change with this kernel, so the ratio compares across
+    calls and machines."""
+    from subzero_tpu_torch.kernels import clip as kclip
+    from subzero_tpu_torch.kernels import clip_pallas as kpallas
+
+    n, vp, vq = a.shape[0], a.shape[1], b.shape[1]
+    g, g_cu = kpallas.lane_group(n, vp, vq), kclip.lane_group(n, vp, vq)
+    ms, _ = card_ms(lambda: kpallas.clip_pallas_cuda(a, b, diff))
+    ms_cu, _ = card_ms(lambda: kclip.clip_stats_cuda(a, b, diff))
+    bound, by, _, _ = clip_bound_ms(a, b)
+    regs, st, ld = ptxas_of(kpallas.build_info["log"],
+                            f"clip_pallas_kernel<G={g}>")
+    log(f"[pallas] {label}: alone {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+        f"share {bound / ms:.1%}; clip.cu alone {ms_cu:.4f} ms (G={g_cu}); "
+        f"ratio to clip.cu {ms / ms_cu:.2f}; G={g}, {regs} registers, "
+        f"{st} B spill stores, {ld} B spill loads")
+
+
 def phase_pallas(record, built):
     """Phase 2b: the Hopper kernel of the Pallas kernel's clip
     (``csrc/clip_pallas.cu``), float32.  (a) Against its plain version on
@@ -662,8 +738,9 @@ def phase_pallas(record, built):
     overlap and wall pairs, the stars' active-pair pool batch), 4,096 x 64
     x 64, the default capacity (plain on the first 16,384 pairs), phase 2's
     small and degenerate cases and the nares_export coastline pair, timed
-    at the five main shapes.  (b) Phase 4's aggregate periodic and (a)
-    default walled quad lattices under ``contact_impl="pallas"``, one
+    at the five main shapes beside clip.cu (``beside_clip_cu``).  (b)
+    Phase 4's aggregate periodic and (a) default walled quad lattices
+    under ``contact_impl="pallas"``, one
     warm-up and STEPS timed steps: the kernel launches once a periodic step
     and twice a walled one, clip.cu never.  (c) The walled 256-quad lattice
     under "pallas", CPU against CUDA in float64 for 20 steps."""
@@ -673,7 +750,7 @@ def phase_pallas(record, built):
     from subzero_tpu_torch.kernels import clip_pallas as kpallas
 
     t0 = time.perf_counter()
-    runs, (stars, _, cfg_pool, slx) = built
+    runs, (stars, _, _, _) = built
 
     def on_card(*arrays):
         return [torch.from_numpy(x).to(stars.device, torch.float32)
@@ -691,34 +768,17 @@ def phase_pallas(record, built):
         return da
 
     # (a) the main shapes: the quads' first-step pairs, the stars' pool
-    _, quads, _, cfg_p = runs[0]
-    p, q, fw, wq = main_path_pairs(quads, cfg_p)
-    from subzero_tpu_torch.dynamics import contact as tcontact
-    from subzero_tpu_torch.dynamics.broadphase import neighbor_candidates
-    from subzero_tpu_torch.dynamics.step import domain_polygon
-
-    nbr = neighbor_candidates(stars.x, stars.y, stars.rmax, stars.alive, 8,
-                              True, slx, slx)
-    (pp, pq), = captured_clip_inputs(lambda: tcontact.contact_forces(
-        stars.verts_world(), stars.x, stars.y, stars.u, stars.v, stars.ksi,
-        stars.h, stars.area, nbr, MODULUS, cfg_pool, nv=stars.nv,
-        domain_verts=domain_polygon(cfg_pool, device=stars.device)))
-    wide = on_card(*random_pairs(4096, 64, 64, seed=4096 + 128))
-    cap = on_card(*random_pairs(163840, 64, 64, seed=11, nv_range=(10, 30)))
     worst = 0.0
-    shapes = [("main-path overlap", p, q, False, None),
-              ("main-path wall difference", fw, wq, True, None),
-              ("pair-pool batch", pp, pq, False, None),
-              ("wide 64x64", *wide, False, None),
-              ("default capacity", *cap, False, 16384)]
+    shapes = pallas_shapes(built)
     for label, a, b, diff, n in shapes:
         worst = max(worst, check(label, a, b, diff, n))
         ms, plain, bound, by = time_kernel(f"pallas {label}", a, b, diff,
                                            plain_on=n, pallas=True)
+        beside_clip_cu(label, a, b, diff)
         if label == "main-path overlap":
             record.update(ms=ms, plain_ms=plain, bound_ms=bound,
                           bound_by=by)
-    del p, q, fw, wq, pp, pq, wide, cap, nbr, shapes, a, b
+    del shapes, a, b
     torch.cuda.empty_cache()
 
     # (a) phase 2's small and degenerate cases, both clips

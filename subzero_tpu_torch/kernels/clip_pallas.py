@@ -14,9 +14,10 @@ to float32 as the JAX kernel's wrapper does, and return float32
 
 The kernel is built like ``csrc/clip.cu`` (``kernels/clip.py``): ``nvcc`` at
 first use, the same flags, a plain C interface loaded with ``ctypes``,
-cached under ``subzero_tpu_torch/_build/``.  It shares clip.cu's tile
-staging, real-edge compaction and lane groups (``csrc/clip_tile.cuh``), so
-``kernels/clip.py:lane_group`` and ``tile_bytes`` hold for it at float32.
+cached under ``subzero_tpu_torch/_build/``.  It shares clip.cu's tile and
+real-edge compaction (``csrc/clip_tile.cuh``), so ``kernels/clip.py:
+tile_bytes`` holds for it at float32, but it has its own lane groups
+(``lane_group``): a pair's G lanes share out both polygons' real edges.
 
 ``clip_pallas_cuda.launches`` counts kernel launches (one per call that
 reaches the kernel).
@@ -25,13 +26,14 @@ reaches the kernel).
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
 
 from ..geometry.clip import OverlapStats
 from ..geometry.clip_pallas import EPS_SCALE, _clip_pallas
-from .clip import SMEM_LIMIT, _PKG, lane_group, load_library, tile_bytes
+from .clip import FILL_THREADS, SMEM_LIMIT, _PKG, load_library, tile_bytes
 
 __all__ = [
     "overlap_stats_pallas",
@@ -39,9 +41,36 @@ __all__ = [
     "clip_pallas_stats",
     "clip_pallas_cuda",
     "build",
+    "lane_group",
 ]
 
 SOURCE = _PKG / "csrc" / "clip_pallas.cu"
+
+
+@functools.lru_cache(maxsize=256)
+def lane_group(b: int, vp: int, vq: int) -> int:
+    """Lanes per pair, G in {1, 2, 4, 8, 16, 32}, for B pairs of Vp x Vq
+    slots.
+
+    The kernel shares out both polygons' real edges, one list, to a pair's
+    G lanes.  About one lane per four slots of the wider polygon (two edges
+    of the list per lane when a quarter of 16 slots or a third of 64 are
+    real: the quad lattice's 4 of 16, the default capacity's 10-30 of 64);
+    more while the B·G threads would not fill the card; at least the
+    smallest G whose tile fits in shared memory; at most the list's slots.
+    Fitted to a sweep of G on an H100 (chip_clip_pallas_bench.py --sweep,
+    PERF.md); ``kernels/clip.py:lane_group`` stays clip.cu's rule."""
+    vmax = max(vp, vq)
+    g = 1
+    while g < 32 and tile_bytes(g, vp, vq, 4) > SMEM_LIMIT:
+        g *= 2
+    cap = 1
+    while cap < min(vp + vq, 32):
+        cap *= 2
+    while g < cap and (g < vmax // 4 or b * g < FILL_THREADS):
+        g *= 2
+    return g
+
 
 _lib = None
 _lib_lock = threading.Lock()

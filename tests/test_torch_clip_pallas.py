@@ -22,7 +22,10 @@ built with ``--fmad=false``).  Hence:
   plain version and launches nothing;
 * the port's CPU step under ``"pallas"`` against the JAX step (its kernel
   interpreted), between walls under the gyre, aggregate and per-region, in
-  a float64 configuration (float32 stats, as in JAX).
+  a float64 configuration (float32 stats, as in JAX);
+* the float32 identities on which the Hopper kernel shares one reciprocal
+  between P's and Q's crossings of an edge pair, and the kernel's lane-group
+  rule (both without a card).
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from subzero_tpu_torch.dynamics.step import make_step_fn as torch_step_fn
 from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
 from subzero_tpu_torch.kernels import clip_pallas as kpallas
 
-from chip_smoke import coastline_pair
+from chip_smoke import coastline_pair, random_pairs
 from test_torch_clip import batches, concave_batch, random_batch
 from test_torch_step import MODULUS, configs, lattice, to_numpy
 
@@ -190,6 +193,96 @@ def test_cpu_wrapper_is_the_plain_version(monkeypatch):
     with pytest.raises(TypeError):
         kpallas.overlap_stats_pallas(torch.from_numpy(p).to(torch.int32),
                                      torch.from_numpy(q).to(torch.int32))
+
+
+def identity_pairs():
+    """float32 polygon pairs for the shared-reciprocal identities: seeded
+    random pairs at 1000 m, the same at ~1e6 m from the origin, the same
+    scaled to 1e-3 m edges, and near-parallel edges (each Q edge P's edge
+    turned by ~1e-7 rad)."""
+    p, q = random_pairs(64, 16, 16, seed=90)
+    sets = [(p, q), (p + 1.0e6, q + 1.0e6),
+            (1e-6 * p + 1.0e3, 1e-6 * q + 1.0e3)]
+    rng = np.random.default_rng(91)
+    th = 1e-7 * rng.uniform(-1.0, 1.0, size=(64, 1))
+    turn = np.stack([np.cos(th) * p[..., 0] - np.sin(th) * p[..., 1],
+                     np.sin(th) * p[..., 0] + np.cos(th) * p[..., 1]], -1)
+    sets.append((p, turn + rng.uniform(-5.0, 5.0, size=(64, 1, 2))))
+    return [(torch.from_numpy(a.astype(np.float32)),
+             torch.from_numpy(b.astype(np.float32))) for a, b in sets]
+
+
+def bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["1e3 m", "1e6 m", "1e-3 m edges",
+                                  "near-parallel"])
+def test_shared_reciprocal_identities_f32(case):
+    """The Hopper kernel evaluates both sides' crossings of an edge pair
+    from one reciprocal: Q's denominator o.dx·e.dy − o.dy·e.dx is bit for
+    bit −(e.dx·o.dy − e.dy·o.dx), its reciprocal −(1/denom), and Q's
+    numerators times its reciprocal −(x · (1/denom)); so its live, window
+    and weight decisions are the plain version's.  float32 on the CPU,
+    every (P edge, Q edge) pair of each polygon pair, Q's origins nudged
+    as the plain version nudges them."""
+    p, q = identity_pairs()[["1e3 m", "1e6 m", "1e-3 m edges",
+                             "near-parallel"].index(case)]
+    px0, py0, px1, py1 = tpallas._planes(p)        # [V, B]
+    qx0, qy0, qx1, qy1 = tpallas._planes(q)
+    dx, dy = (px1 - px0)[:, None], (py1 - py0)[:, None]     # [Vp, 1, B]
+    dqx, dqy = (qx1 - qx0)[None], (qy1 - qy0)[None]         # [1, Vq, B]
+    denom = dx * dqy - dy * dqx
+    denom_q = dqx * dy - dqy * dx                 # Q's own, as the plain
+    live = torch.abs(denom) > 0                   # version forms it
+    assert torch.equal(live, torch.abs(denom_q) > 0)
+    assert int(live.sum()) > 1000             # padding edges are dead
+    assert torch.equal(bits(denom_q[live]), bits(-denom[live]))
+    inv = 1.0 / denom[live]
+    inv_q = 1.0 / denom_q[live]
+    assert torch.equal(bits(inv_q), bits(-inv))
+    assert torch.equal(torch.sign(denom_q[live]), -torch.sign(denom[live]))
+    eps = tpallas.pair_eps(p, q)
+    elen2 = dqx * dqx + dqy * dqy
+    inv_len = torch.where(elen2 > 0, 1.0 / torch.sqrt(elen2),
+                          torch.zeros_like(elen2))
+    for sgn in (1.0, -1.0):
+        ox = qx0[None] + sgn * eps * (dqy * inv_len)
+        oy = qy0[None] + sgn * eps * (-dqx * inv_len)
+        relx, rely = px0[:, None] - ox, py0[:, None] - oy
+        for num in (relx * dqy - rely * dqx, relx * dy - rely * dx):
+            x = num[live]
+            assert torch.equal(bits(x * inv_q), bits(-(x * inv)))
+            assert torch.equal(bits(x * inv_q), bits(x * -inv))
+
+
+# kernels/clip.py:lane_group, the rule of clip.cu's launches, which the
+# Pallas kernel's own rule leaves as it was: {(B, Vp, Vq): G}
+CLIP_CU_LANES = {
+    (1, 3, 3): 4, (1, 16, 8): 16, (1, 16, 16): 16, (1, 64, 64): 32,
+    (13, 16, 16): 16, (1000, 16, 8): 16, (1000, 24, 24): 32,
+    (10240, 16, 8): 8, (10240, 16, 16): 8, (10240, 24, 24): 16,
+    (53120, 3, 3): 2, (53120, 16, 16): 4, (81920, 3, 3): 1,
+    (81920, 16, 16): 4, (81920, 64, 8): 32, (163840, 16, 8): 4,
+    (163840, 64, 64): 32, (163840, 100, 100): 32,
+}
+PALLAS_SHAPES = [(81920, 16, 16), (10240, 16, 8), (53120, 16, 16),
+                 (4096, 64, 64), (163840, 64, 64)]
+
+
+def test_lane_group_rule():
+    """The Pallas kernel's lane groups: a power of two whose tile fits in
+    shared memory, at phase 2b's five shapes and over a grid of shapes;
+    clip.cu's rule unchanged."""
+    from subzero_tpu_torch.kernels import clip as kclip
+
+    grid = [(b, vp, vq) for b in (1, 13, 1000, 10240, 53120, 163840)
+            for vp in (1, 3, 8, 16, 24, 64, 100) for vq in (1, 3, 8, 16, 64)]
+    for b, vp, vq in PALLAS_SHAPES + grid:
+        g = kpallas.lane_group(b, vp, vq)
+        assert g in (1, 2, 4, 8, 16, 32), (b, vp, vq, g)
+        assert kclip.tile_bytes(g, vp, vq, 4) <= kclip.SMEM_LIMIT
+    assert {s: kclip.lane_group(*s) for s in CLIP_CU_LANES} == CLIP_CU_LANES
 
 
 # The step lockstep's bounds.  The stats are float32 at the floes' scale, and

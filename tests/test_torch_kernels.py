@@ -21,7 +21,8 @@ from subzero_tpu_torch.kernels import clip as kclip
 from subzero_tpu_torch.kernels import clip_pallas as kpallas
 
 from chip_smoke import (
-    coastline_pair, degenerate_pairs, one_past_tile, with_duplicates,
+    coastline_pair, degenerate_pairs, one_past_tile, random_pairs,
+    with_duplicates,
 )
 
 torch.set_num_threads(1)
@@ -152,12 +153,55 @@ def _hold_on_card(p, q, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,vp,vq", [(4096, 16, 16), (1000, 16, 8)])
-def test_pallas_kernel_matches_plain_on_card(b, vp, vq):
+@pytest.mark.parametrize("b,vp,vq,nv", [(4096, 16, 16, None),
+                                        (1000, 16, 8, None),
+                                        (4099, 64, 64, (10, 30)),
+                                        (1001, 16, 16, (3, 16))])
+def test_pallas_kernel_matches_plain_on_card(b, vp, vq, nv):
+    """At the main path's slot counts, and at the default capacity's 64
+    slots with 10-30 real vertices; B = 4,099 and 1,001 are not multiples of
+    the kernel's tile, so the last tile copied behind the math is short."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    made = (pairs(b, seed=b + vp + 1, vp=vp, vq=vq) if nv is None
+            else random_pairs(b, vp, vq, seed=b + vp, nv_range=nv))
+    pt, qt = (torch.from_numpy(x).to("cuda", torch.float32) for x in made)
+    for difference in (False, True):
+        got = kpallas.clip_pallas_cuda(pt, qt, difference)
+        want = _clip_pallas(pt, qt, difference)
+        torch.cuda.synchronize()
+        scale = float(want.area.abs().max())
+        assert float((got.area - want.area).abs().max()) <= 1e-5 * scale
+        assert float((got.chord_p - want.chord_p).abs().max()) <= 1e-2
+        assert torch.equal(got.n_cross, want.n_cross)
+
+
+def tiny_edge_pairs(b=256, v=16):
+    """P: the square [0, 1000 m]² with a 1e-18 m edge at its first corner
+    (a component below 2^-51, so the kernel takes 1.0f / x for the pair);
+    Q: seeded random polygons over it."""
+    sq = np.array([[0.0, 0.0], [1e-18, 0.0], [1000.0, 0.0],
+                   [1000.0, 1000.0], [0.0, 1000.0]])
+    p = np.concatenate([sq, np.repeat(sq[:1], v - len(sq), 0)])
+    _, q = random_pairs(b, v, v, seed=77)
+    return np.repeat(p[None], b, axis=0), 0.5 * q + 500.0
+
+
+def test_tiny_edge_pairs_keep_their_tiny_edge():
+    p, q = tiny_edge_pairs()
+    p32 = torch.from_numpy(p).float()
+    dx = (torch.roll(p32, -1, dims=1) - p32)[:, 0, 0]
+    assert bool((dx > 0).all()) and float(dx.max()) < 2.0 ** -51
+    got = _clip_pallas(p32, torch.from_numpy(q).float(), False)
+    assert float(got.area.max()) > 0
+
+
+@pytest.mark.cuda
+def test_pallas_kernel_ieee_path_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     pt, qt = (torch.from_numpy(x).to("cuda", torch.float32)
-              for x in pairs(b, seed=b + vp + 1, vp=vp, vq=vq))
+              for x in tiny_edge_pairs())
     for difference in (False, True):
         got = kpallas.clip_pallas_cuda(pt, qt, difference)
         want = _clip_pallas(pt, qt, difference)
@@ -198,3 +242,70 @@ def test_pallas_module_serves_cpu_without_building(monkeypatch):
     assert kpallas.clip_pallas_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         kpallas.clip_pallas_cuda(pt.float(), qt.float(), False)
+
+
+EXHAUSTIVE_CU = """// {digest}: the kernel's source, for the build cache
+#include "{source}"
+
+// Every float32 bit pattern: rcp_in_range against 1.0f / x where the
+// exponent field is in [1, 252] (|x| in [2^-126, 2^126)) and NaN at ±0,
+// clamp_nan against the plain clamp everywhere (NaN kept; -0 and +0
+// alike).
+__global__ void exhaustive(unsigned long long* out) {{
+  unsigned long long bad_rcp = 0, bad_clamp = 0, tested = 0;
+  const unsigned long long step =
+      (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                              threadIdx.x;
+       i < (1ull << 32); i += step) {{
+    const float x = __uint_as_float((unsigned)i);
+    const unsigned ef = ((unsigned)i >> 23) & 0xff;
+    if (ef >= 1 && ef <= 252) {{
+      ++tested;
+      if (__float_as_uint(rcp_in_range(x)) != __float_as_uint(1.0f / x))
+        ++bad_rcp;
+    }}
+    const float c = clamp_nan(x);
+    const float want = x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
+    if (!((isnan(c) && isnan(want)) || c == want)) ++bad_clamp;
+  }}
+  // a parallel pair's denominator gives NaN, which fails every test
+  if (blockIdx.x == 0 && threadIdx.x == 0 &&
+      !(isnan(rcp_in_range(0.0f)) && isnan(rcp_in_range(-0.0f))))
+    ++bad_rcp;
+  atomicAdd(out, bad_rcp);
+  atomicAdd(out + 1, bad_clamp);
+  atomicAdd(out + 2, tested);
+}}
+
+extern "C" int clip_pallas_exhaustive(unsigned long long* out) {{
+  exhaustive<<<132 * 16, 256>>>(out);
+  return (int)cudaDeviceSynchronize();
+}}
+"""
+
+
+@pytest.mark.cuda
+def test_pallas_fast_reciprocal_is_ieee(tmp_path):
+    """clip_pallas.cu's reciprocal without its range test equals 1.0f / x
+    for every float32 of magnitude in [2^-126, 2^126), and its two-
+    instruction clamp the plain clamp for every float32: the grounds on
+    which the kernel stays bit for bit the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import ctypes
+    import hashlib
+
+    src = kpallas.SOURCE
+    cu = tmp_path / "clip_pallas_exhaustive.cu"
+    cu.write_text(EXHAUSTIVE_CU.format(
+        digest=hashlib.sha256(src.read_bytes()).hexdigest(), source=src))
+    so, _, _ = kclip.compile_source(cu)
+    fn = ctypes.CDLL(str(so)).clip_pallas_exhaustive
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(3, dtype=torch.int64, device="cuda")
+    assert fn(out.data_ptr()) == 0
+    bad_rcp, bad_clamp, tested = out.tolist()
+    assert tested == 252 * 2 * 2 ** 23
+    assert bad_rcp == 0 and bad_clamp == 0
