@@ -52,7 +52,7 @@ def main() -> int:
         print("chip_eulerian_bench: CUDA is not available", file=sys.stderr)
         return 2
     from subzero_tpu_torch import diagnostics as new
-    from subzero_tpu_torch.kernels import clip as kclip
+    from subzero_tpu_torch import trace
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -75,10 +75,10 @@ def main() -> int:
     for label, call in calls.items():
         launches = {}
         for name, mod in (("old", old), ("new", new)):
-            kclip.clip_stats_cuda.launches = 0
-            call(mod)
+            with trace.recording(trace.Table()) as table:
+                call(mod)
             torch.cuda.synchronize()
-            launches[name] = kclip.clip_stats_cuda.launches
+            launches[name] = smoke.launch_counts(table)[0]
         times = {"old": [], "new": []}
         for name in ("old", "new", "new", "old"):
             mod = old if name == "old" else new

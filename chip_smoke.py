@@ -99,7 +99,8 @@ prints no result):
    on a 40x40 grid, the shadow ledger on; the cadence clock starts at step
    60, 10 warm-up steps, then 30 timed steps (cut from 150: the host passes
    take ~4.4 s a step at this size) through ``Simulation.run`` with the
-   launch counter zeroed just before and read just after.  It prints
+   launch counts (the step's and the lifecycle's tables) zeroed just
+   before and read just after.  It prints
    floe-steps/s of the driver and of the bare ``make_step_fn`` step on the
    same state, ``phase_report()`` with the lifecycle's per-pass seconds,
    the live floe count before and after, peak memory and clip launches
@@ -175,7 +176,8 @@ and power limit; before it, one JSON object with both kernels' records:
 clip_pallas.cu's timed at the main path's overlap pairs, its ``launches``
 from phase 2b (b)'s two runs; clip.cu's ``launches`` summed over the
 seven phase-4 runs, the phase-6 run (the
-step's clip, one a step; the Eulerian calls launch none), the three
+step's clip, one a step, and the lifecycle passes'; the Eulerian calls
+launch none), the three
 phase-7 (d) runs, phase 8 (c)'s two slab-step runs and phase 9's four
 campaign runs.  The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -203,6 +205,20 @@ def log(*a):
 # ---------------------------------------------------------------------------
 # inputs
 # ---------------------------------------------------------------------------
+
+def launch_counts(table):
+    """(csrc/clip.cu, csrc/clip_pallas.cu) launches in a ``trace.Table``'s
+    counts."""
+    c = table.counts
+    return c.get("clip.launches", 0), c.get("clip_pallas.launches", 0)
+
+
+def sim_launches(sim):
+    """csrc/clip.cu launches of a Simulation's runs: the step's
+    (``phase_times``) and the lifecycle passes' (``pass_times``)."""
+    return sum(launch_counts(t)[0]
+               for t in (sim.phase_times, sim.lifecycle.pass_times))
+
 
 def random_pairs(b, vp, vq, seed, scale=1000.0, nv_range=None):
     """Seeded random pairs of star-shaped polygons (simple and CCW), padded
@@ -887,8 +903,7 @@ def lockstep(label, polys, vel, lx, cfg, steps, need_regions=False,
     from subzero_tpu_torch.convert import state_to_numpy, state_from_numpy
     from subzero_tpu_torch.dynamics.step import make_step_fn
     from subzero_tpu_torch.forcing import uniform_forcing
-    from subzero_tpu_torch.kernels import clip as kclip
-    from subzero_tpu_torch.kernels import clip_pallas as kpallas
+    from subzero_tpu_torch import trace
     from subzero_tpu_torch.state import state_from_polygons
 
     st0 = state_to_numpy(state_from_polygons(polys, 0.5, cfg,
@@ -900,18 +915,16 @@ def lockstep(label, polys, vel, lx, cfg, steps, need_regions=False,
         step = make_step_fn(cfg, fc, MODULUS, device=dev)
         st = state_from_numpy(st0, device=dev, dtype=torch.float64)
         traj, counts, walls = [], [], 0
-        kclip.clip_stats_cuda.launches = 0
-        kpallas.clip_pallas_cuda.launches = 0
-        for i in range(steps):
-            st, aux = step(st, i)
-            traj.append({k: getattr(st, k).cpu().numpy()
-                         for k in ("x", "y", "u", "v", "ksi")})
-            counts.append(tuple(int(getattr(aux, k)) for k in (
-                "n_collisions", "region_pool_need", "region_overflow",
-                "pair_pool_need", "pair_pool_overflow")))
-            walls += int(aux.boundary_contact.sum())
-        runs[dev] = (traj, counts, walls, (kclip.clip_stats_cuda.launches,
-                                           kpallas.clip_pallas_cuda.launches))
+        with trace.recording(trace.Table()) as table:
+            for i in range(steps):
+                st, aux = step(st, i)
+                traj.append({k: getattr(st, k).cpu().numpy()
+                             for k in ("x", "y", "u", "v", "ksi")})
+                counts.append(tuple(int(getattr(aux, k)) for k in (
+                    "n_collisions", "region_pool_need", "region_overflow",
+                    "pair_pool_need", "pair_pool_overflow")))
+                walls += int(aux.boundary_contact.sum())
+        runs[dev] = (traj, counts, walls, launch_counts(table))
     (tc, cc, wc, lc), (tg, cg, wg, lg) = runs["cpu"], runs["cuda"]
     periodic = cfg.processes.periodic
     per = steps * (1 if periodic else 2)
@@ -979,9 +992,8 @@ def run_main_path(state, cfg, forcing):
     gathered on the device and read after the timing."""
     import torch
 
+    from subzero_tpu_torch import trace
     from subzero_tpu_torch.dynamics.step import make_step_fn
-    from subzero_tpu_torch.kernels import clip as kclip
-    from subzero_tpu_torch.kernels import clip_pallas as kpallas
 
     step = make_step_fn(cfg, forcing, MODULUS)
     marks = []
@@ -993,28 +1005,25 @@ def run_main_path(state, cfg, forcing):
 
     keys = ("region_pool_need", "region_overflow", "pair_pool_need",
             "pair_pool_overflow", "nbr_overflow")
-    kclip.clip_stats_cuda.launches = 0
-    kpallas.clip_pallas_cuda.launches = 0
-    s, aux = step(state, 0)
-    torch.cuda.synchronize()
-    marks.clear()
-    most = None
-    t0 = time.perf_counter()
-    for i in range(1, STEPS + 1):
-        s, aux = step(s, i, timer=timer)
-        vals = [getattr(aux, k).to(torch.int32) for k in keys]
-        most = vals if most is None else [torch.maximum(a, b)
-                                          for a, b in zip(most, vals)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = (kclip.clip_stats_cuda.launches,
-                kpallas.clip_pallas_cuda.launches)
+    with trace.recording(trace.Table()) as table:
+        s, aux = step(state, 0)
+        torch.cuda.synchronize()
+        marks.clear()
+        most = None
+        t0 = time.perf_counter()
+        for i in range(1, STEPS + 1):
+            s, aux = step(s, i, timer=timer)
+            vals = [getattr(aux, k).to(torch.int32) for k in keys]
+            most = vals if most is None else [torch.maximum(a, b)
+                                              for a, b in zip(most, vals)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     phase = {}
     for (name, a), (_, b) in zip(marks, marks[1:]):
         if name != "end":
             phase[name] = phase.get(name, 0.0) + a.elapsed_time(b) / STEPS
     most = {k: int(v) for k, v in zip(keys, most)}
-    return launches, state.n * STEPS / wall, phase, s, aux, most
+    return launch_counts(table), state.n * STEPS / wall, phase, s, aux, most
 
 
 def captured_clip_inputs(call):
@@ -1598,6 +1607,7 @@ def phase_big_run(kernel_record):
     import torch
 
     from subzero_tpu_torch.dynamics.step import make_step_fn
+    from subzero_tpu_torch import trace
     from subzero_tpu_torch.kernels import clip as kclip
     from subzero_tpu_torch.sim import Simulation
 
@@ -1646,14 +1656,13 @@ def phase_big_run(kernel_record):
         alive0 = int(sim.state.alive.sum())
         mass0 = sim.total_mass()
         sim.phase_times.clear()
-        getattr(sim.lifecycle, "pass_times", {}).clear()
+        sim.lifecycle.pass_times.clear()
         torch.cuda.reset_peak_memory_stats()
-        kclip.clip_stats_cuda.launches = 0
         t0 = time.perf_counter()
         sim.run(BIG_STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = kclip.clip_stats_cuda.launches
+        launches = sim_launches(sim)
     finally:
         Simulation._grow_pools = orig
         tlc.apply_edits, tlc.Lifecycle.step = orig_apply, orig_step
@@ -1719,11 +1728,11 @@ def phase_big_run(kernel_record):
 
     tdiag.overlap_stats = capture
     try:
-        kclip.clip_stats_cuda.launches = 0
-        for call in calls.values():
-            call()
+        with trace.recording(trace.Table()) as table:
+            for call in calls.values():
+                call()
         torch.cuda.synchronize()
-        per_call = kclip.clip_stats_cuda.launches
+        per_call = launch_counts(table)[0]
     finally:
         tdiag.overlap_stats = saved
     eul_ms = {}
@@ -1750,7 +1759,8 @@ def phase_big_run(kernel_record):
         + ", ".join(f"{k} {v:.3f} ms" for k, v in eul_ms.items())
         + f" a call over {EUL_REPS} calls; clip launches "
         f"{launches / BIG_STEPS:.2f} per step in Simulation.run (the step's "
-        f"overlap clip), {per_call} in the two Eulerian calls")
+        f"overlap clip and the lifecycle's), {per_call} in the two "
+        f"Eulerian calls")
     if launches < BIG_STEPS or per_call:
         raise AssertionError(f"phase 6: {launches} clip launches in "
                              f"{BIG_STEPS} steps and {per_call} in an "
@@ -1853,9 +1863,9 @@ def golden_lockstep(polys, vels, n_steps, device, check_every=50,
     states, the clip kernel's launches and the seconds spent in each."""
     import torch
 
+    from subzero_tpu_torch import trace
     from subzero_tpu_torch.dynamics.step import make_step_fn
     from subzero_tpu_torch.forcing import uniform_forcing
-    from subzero_tpu_torch.kernels import clip as kclip
     from subzero_tpu_torch.oracle import (
         floes_from_state, kinetic_energy, oracle_step,
     )
@@ -1875,10 +1885,11 @@ def golden_lockstep(polys, vels, n_steps, device, check_every=50,
     k_series = [kinetic_energy(floes)]
     max_dx = max_du = t_step = t_oracle = 0.0
     n = len(polys)
-    kclip.clip_stats_cuda.launches = 0
+    table = trace.Table()
     for s in range(n_steps):
         t0 = time.perf_counter()
-        st, _ = step(st, s)
+        with trace.recording(table):
+            st, _ = step(st, s)
         sync()
         t1 = time.perf_counter()
         oracle_step(floes, forcing, cfg, modulus, s)
@@ -1894,7 +1905,7 @@ def golden_lockstep(polys, vels, n_steps, device, check_every=50,
                                  abs(got["y"][i] - f.y))
                     max_du = max(max_du, abs(got["u"][i] - f.u),
                                  abs(got["v"][i] - f.v))
-    launches = kclip.clip_stats_cuda.launches
+    launches = launch_counts(table)[0]
     m, u, v, inertia, ksi = (getattr(st, k)[:n].cpu().numpy() for k in (
         "mass", "u", "v", "inertia", "ksi"))
     k_step = float(np.sum(0.5 * m * (u ** 2 + v ** 2)
@@ -2224,7 +2235,7 @@ def run_spatial_main(state, cfg, forcing, mesh):
     (the trajectory update keeps its one host sync)."""
     import torch
 
-    from subzero_tpu_torch.kernels import clip as kclip
+    from subzero_tpu_torch import trace
     from subzero_tpu_torch.parallel import shard_state
     from subzero_tpu_torch.parallel.spatial2d import mesh_step
 
@@ -2238,19 +2249,20 @@ def run_spatial_main(state, cfg, forcing, mesh):
         marks.append((name, ev))
 
     flag = torch.zeros((), dtype=torch.bool, device=mesh.device)
-    kclip.clip_stats_cuda.launches = 0
-    s, aux = step(slab, 0)
-    torch.cuda.synchronize()
-    marks.clear()
-    t0 = time.perf_counter()
-    for i in range(1, STEPS + 1):
-        s, aux = step(s, i, timer=timer)
-        # step.overflow: every rank's neighbour table, ghosts and migration
-        flag = flag | step.overflow | aux.region_overflow \
-            | aux.pair_pool_overflow
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kclip.clip_stats_cuda.launches
+    with trace.recording(trace.Table()) as table:
+        s, aux = step(slab, 0)
+        torch.cuda.synchronize()
+        marks.clear()
+        t0 = time.perf_counter()
+        for i in range(1, STEPS + 1):
+            s, aux = step(s, i, timer=timer)
+            # step.overflow: every rank's neighbour table, ghosts and
+            # migration
+            flag = flag | step.overflow | aux.region_overflow \
+                | aux.pair_pool_overflow
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts(table)[0]
     n_alive = int(mesh.psum(s.alive.sum()[None]).item())
     phase = {}
     for (name, a), (_, b) in zip(marks, marks[1:]):
@@ -2422,7 +2434,7 @@ def phase_campaign(kernel_record):
     import torch
 
     from subzero_tpu_torch import campaign
-    from subzero_tpu_torch.kernels import clip as kclip
+    from subzero_tpu_torch.sim import Simulation
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2434,10 +2446,21 @@ def phase_campaign(kernel_record):
                  f"--out={legs}"],
                 ["uniaxial", f"--steps={CAMPAIGN_UNIAXIAL}",
                  f"--out={straight}"]]
-        kclip.clip_stats_cuda.launches = 0
-        rcs = [campaign.main(argv) for argv in runs]
+        # each run's Simulation counts its own launches (phase_times and
+        # its lifecycle's pass_times): note every one the campaign drives
+        sims, run0 = {}, Simulation.run
+
+        def noted(sim, *a, **kw):
+            sims[id(sim)] = sim
+            return run0(sim, *a, **kw)
+
+        Simulation.run = noted
+        try:
+            rcs = [campaign.main(argv) for argv in runs]
+        finally:
+            Simulation.run = run0
         torch.cuda.synchronize()
-        launches = kclip.clip_stats_cuda.launches
+        launches = sum(sim_launches(sim) for sim in sims.values())
         wall = time.perf_counter() - t0
         if any(rcs):
             raise AssertionError(f"phase 9: campaign runs exited {rcs}")

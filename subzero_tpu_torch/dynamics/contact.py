@@ -42,6 +42,7 @@ from ..kernels.clip import difference_stats, overlap_stats
 from ..kernels.clip_pallas import (
     difference_stats_pallas, overlap_stats_pallas,
 )
+from ..trace import span
 from .broadphase import NeighborTable
 
 
@@ -68,6 +69,13 @@ def _clip_fns(cfg: SimConfig):
     if impl == "xla":
         return overlap_stats_bm, difference_stats_bm
     return overlap_stats, difference_stats
+
+
+def _clip(fn, p: torch.Tensor, q: torch.Tensor):
+    """One call of a clip function of :func:`_clip_fns` under the host span
+    "clip"."""
+    with span("clip"):
+        return fn(p, q)
 
 
 class PairContacts(NamedTuple):
@@ -590,7 +598,7 @@ def contact_forces(
         sel, n_act, slot_ok, sel_g = _compact(active.reshape(p), m2)
 
         vi_m, vj_m, kin_m, ff_m, amin_m, mok_m, _ = gather_pair(sel_g)
-        st = overlap_fn(vi_m, vj_m)
+        st = _clip(overlap_fn, vi_m, vj_m)
         ui_m, vvi_m, ksii_m, uj_m, vj_k_m, ksij_m, xj_m, yj_m = kin_m
         i_s = torch.div(sel_g, k, rounding_mode="floor")
         j_s = j_flat[sel_g]
@@ -641,7 +649,8 @@ def contact_forces(
         ci = torch.stack([x, y], dim=-1)[:, None, None, :]  # [N, 1, 1, 2]
         vj = verts_s[j] + nbr.shift[:, :, None, :] - ci
         vi = (verts_world[:, None] - ci).expand(vj.shape)
-        st = overlap_fn(vi.reshape(p, vcap, 2), vj.reshape(p, vcap, 2))
+        st = _clip(overlap_fn, vi.reshape(p, vcap, 2),
+                   vj.reshape(p, vcap, 2))
         del vi, vj
 
         def fl(a):
@@ -743,7 +752,7 @@ def boundary_contact(
     cdt = torch.promote_types(verts_world.dtype, domain_verts.dtype)
     dom = domain_verts.to(cdt)[None].expand(
         (n,) + tuple(domain_verts.shape)) - ci
-    st = difference_fn((verts_world - ci).to(cdt), dom.to(cdt))
+    st = _clip(difference_fn, (verts_world - ci).to(cdt), dom.to(cdt))
     del dom
 
     ar = torch.clamp(st.area, min=0.0)

@@ -21,6 +21,7 @@ from ..device import resolve_device
 from ..forcing import Forcing
 from ..geometry.polygon import pad_polygon
 from ..state import FloeState, torch_dtype
+from ..trace import span
 from .broadphase import neighbor_candidates, neighbor_candidates_cells
 from .contact import (
     BoundaryContact, PairContacts, boundary_contact, contact_forces,
@@ -81,7 +82,8 @@ def physics_step(
 
     ``timer``: optional callable ``timer(name)`` called at the start of each
     phase ("broadphase", "contact", "wall", "trajectory") and with "end";
-    the caller may record CUDA events there.
+    the caller may record CUDA events there.  Each phase is also a host
+    span of the same name (``trace.span``).
     """
     mark = timer or (lambda name: None)
     proc = cfg.processes
@@ -93,167 +95,173 @@ def physics_step(
 
     do_int = (int(step_idx) % proc.n_ocean_force) == 0
 
-    mark("broadphase")
-    verts_world = state.verts_world()
+    with span("broadphase"):
+        mark("broadphase")
+        verts_world = state.verts_world()
 
-    # ---- broad phase ------------------------------------------------------
-    # The JAX step's rule: the cell list only on a grid of >= 3 cells a
-    # side, the dense test otherwise.
-    num = cfg.numerics
-    use_cells = (
-        num.broadphase == "cells" and num.cell_size > 0
-        and int(2 * cfg.domain.lx / num.cell_size) >= 3
-        and int(2 * cfg.domain.ly / num.cell_size) >= 3
-    )
-    if use_cells:
-        nbr = neighbor_candidates_cells(
-            state.x, state.y, state.rmax, state.alive,
-            cfg.capacity.max_neighbors, periodic,
-            cfg.domain.lx, cfg.domain.ly,
-            num.cell_size, cfg.capacity.max_per_cell,
-            n_skip_rows=cfg.n_boundary,
+        # ---- broad phase ----------------------------------------------------
+        # The JAX step's rule: the cell list only on a grid of >= 3 cells a
+        # side, the dense test otherwise.
+        num = cfg.numerics
+        use_cells = (
+            num.broadphase == "cells" and num.cell_size > 0
+            and int(2 * cfg.domain.lx / num.cell_size) >= 3
+            and int(2 * cfg.domain.ly / num.cell_size) >= 3
         )
-    else:
-        nbr = neighbor_candidates(
-            state.x, state.y, state.rmax, state.alive,
-            cfg.capacity.max_neighbors, periodic,
-            cfg.domain.lx, cfg.domain.ly,
-            n_skip_rows=cfg.n_boundary,
-        )
+        if use_cells:
+            nbr = neighbor_candidates_cells(
+                state.x, state.y, state.rmax, state.alive,
+                cfg.capacity.max_neighbors, periodic,
+                cfg.domain.lx, cfg.domain.ly,
+                num.cell_size, cfg.capacity.max_per_cell,
+                n_skip_rows=cfg.n_boundary,
+            )
+        else:
+            nbr = neighbor_candidates(
+                state.x, state.y, state.rmax, state.alive,
+                cfg.capacity.max_neighbors, periodic,
+                cfg.domain.lx, cfg.domain.ly,
+                n_skip_rows=cfg.n_boundary,
+            )
 
     # ---- narrow phase: floe-floe ------------------------------------------
-    mark("contact")
-    no = torch.zeros((), dtype=torch.bool, device=dev)
-    none = torch.zeros((), dtype=torch.int32, device=dev)
-    if proc.collision:
-        pc = contact_forces(
-            verts_world, state.x, state.y, state.u, state.v, state.ksi,
-            state.h, state.area, nbr, modulus, cfg,
-            nv=state.nv, domain_verts=domain_verts,
-        )
-    else:
-        zk = torch.zeros(nbr.idx.shape, dtype=dtype, device=dev)
-        zb = torch.zeros(nbr.idx.shape, dtype=torch.bool, device=dev)
-        pc = PairContacts(fx=zk, fy=zk, px=zk, py=zk, tq=zk,
-                          sxx=zk, syy=zk, sxy=zk, overlap=zk,
-                          merge_i=zb, merge_j=zb,
-                          region_overflow=no, region_need=none,
-                          pair_pool_overflow=no, pair_pool_need=none)
+    with span("contact"):
+        mark("contact")
+        no = torch.zeros((), dtype=torch.bool, device=dev)
+        none = torch.zeros((), dtype=torch.int32, device=dev)
+        if proc.collision:
+            pc = contact_forces(
+                verts_world, state.x, state.y, state.u, state.v, state.ksi,
+                state.h, state.area, nbr, modulus, cfg,
+                nv=state.nv, domain_verts=domain_verts,
+            )
+        else:
+            zk = torch.zeros(nbr.idx.shape, dtype=dtype, device=dev)
+            zb = torch.zeros(nbr.idx.shape, dtype=torch.bool, device=dev)
+            pc = PairContacts(fx=zk, fy=zk, px=zk, py=zk, tq=zk,
+                              sxx=zk, syy=zk, sxy=zk, overlap=zk,
+                              merge_i=zb, merge_j=zb,
+                              region_overflow=no, region_need=none,
+                              pair_pool_overflow=no, pair_pool_need=none)
 
     # ---- narrow phase: boundary -------------------------------------------
-    mark("wall")
-    if not periodic:
-        # Rectangular-wall force-component zeroing is applied inside; the
-        # default wall_zero_tol=0.0 reproduces the reference's never-firing
-        # == test (wall friction survives).
-        bc = boundary_contact(
-            verts_world, state.x, state.y, state.u, state.v, state.ksi,
-            state.h, state.area, state.alive, domain_verts, modulus, cfg,
-            nv=state.nv,
-        )
-    else:
-        zn = torch.zeros((n,), dtype=dtype, device=dev)
-        zb = torch.zeros((n,), dtype=torch.bool, device=dev)
-        bc = BoundaryContact(
-            fx=zn, fy=zn, px=zn, py=zn, tq=zn, sxx=zn, syy=zn, sxy=zn,
-            overlap=zn, absorb=zb, out=zb,
-            region_overflow=no, region_need=none,
-        )
+    with span("wall"):
+        mark("wall")
+        if not periodic:
+            # Rectangular-wall force-component zeroing is applied inside; the
+            # default wall_zero_tol=0.0 reproduces the reference's never-firing
+            # == test (wall friction survives).
+            bc = boundary_contact(
+                verts_world, state.x, state.y, state.u, state.v, state.ksi,
+                state.h, state.area, state.alive, domain_verts, modulus, cfg,
+                nv=state.nv,
+            )
+        else:
+            zn = torch.zeros((n,), dtype=dtype, device=dev)
+            zb = torch.zeros((n,), dtype=torch.bool, device=dev)
+            bc = BoundaryContact(
+                fx=zn, fy=zn, px=zn, py=zn, tq=zn, sxx=zn, syy=zn, sxy=zn,
+                overlap=zn, absorb=zb, out=zb,
+                region_overflow=no, region_need=none,
+            )
 
     # ---- reduce forces & torques -----------------------------------------
-    mark("trajectory")
-    f_valid = (torch.abs(pc.fx) + torch.abs(pc.fy)) > 0
-    b_valid = (torch.abs(bc.fx) + torch.abs(bc.fy)) > 0
+    with span("trajectory"):
+        mark("trajectory")
+        f_valid = (torch.abs(pc.fx) + torch.abs(pc.fy)) > 0
+        b_valid = (torch.abs(bc.fx) + torch.abs(bc.fy)) > 0
 
-    cf_x = torch.sum(pc.fx, dim=1) + bc.fx
-    cf_y = torch.sum(pc.fy, dim=1) + bc.fy
-    # torque about own centroid (floe_interactions_all.m:255-259)
-    cf_t = torch.sum(pc.tq, dim=1) + bc.tq
+        cf_x = torch.sum(pc.fx, dim=1) + bc.fx
+        cf_y = torch.sum(pc.fy, dim=1) + bc.fy
+        # torque about own centroid (floe_interactions_all.m:255-259)
+        cf_t = torch.sum(pc.tq, dim=1) + bc.tq
 
-    overlap_total = torch.sum(pc.overlap, dim=1) + bc.overlap
+        overlap_total = torch.sum(pc.overlap, dim=1) + bc.overlap
 
-    # ---- stress ring buffer ----------------------------------------------
-    s_new = stress_from_sums(
-        state,
-        torch.sum(pc.sxx, dim=1) + bc.sxx,
-        torch.sum(pc.syy, dim=1) + bc.syy,
-        torch.sum(pc.sxy, dim=1) + bc.sxy,
-    )
-    state = push_stress(state, s_new, step_idx)
+        # ---- stress ring buffer ---------------------------------------------
+        s_new = stress_from_sums(
+            state,
+            torch.sum(pc.sxx, dim=1) + bc.sxx,
+            torch.sum(pc.syy, dim=1) + bc.syy,
+            torch.sum(pc.sxy, dim=1) + bc.sxy,
+        )
+        state = push_stress(state, s_new, step_idx)
 
-    state = state.replace(overlap_area=overlap_total)
+        state = state.replace(overlap_area=overlap_total)
 
-    # ---- kill flags -------------------------------------------------------
-    alive_before = state.alive
-    killed_boundary = bc.absorb | bc.out
-    if proc.kill_below_ymin:
-        # Nares export rule: a floe whose lowest vertex drops below the
-        # southern wall dies (padded slots repeat vertex 0).
-        y_min_wall = torch.amin(domain_verts[:, 1])
-        below = state.alive & (
-            torch.amin(verts_world[..., 1], dim=1) < y_min_wall)
-        killed_boundary = killed_boundary | below
-    exported = alive_before & killed_boundary  # mass leaves the domain
-    if not proc.keep_min:
-        # small-floe cull, device-side (Subzero.m:366-372)
-        too_small = (state.area < cfg.min_floe_size) & (
-            idx_arange >= cfg.n_boundary)
-        killed_boundary = killed_boundary | too_small
-    state = state.replace(alive=state.alive & ~killed_boundary)
+        # ---- kill flags -----------------------------------------------------
+        alive_before = state.alive
+        killed_boundary = bc.absorb | bc.out
+        if proc.kill_below_ymin:
+            # Nares export rule: a floe whose lowest vertex drops below the
+            # southern wall dies (padded slots repeat vertex 0).
+            y_min_wall = torch.amin(domain_verts[:, 1])
+            below = state.alive & (
+                torch.amin(verts_world[..., 1], dim=1) < y_min_wall)
+            killed_boundary = killed_boundary | below
+        exported = alive_before & killed_boundary  # mass leaves the domain
+        if not proc.keep_min:
+            # small-floe cull, device-side (Subzero.m:366-372)
+            too_small = (state.area < cfg.min_floe_size) & (
+                idx_arange >= cfg.n_boundary)
+            killed_boundary = killed_boundary | too_small
+        state = state.replace(alive=state.alive & ~killed_boundary)
 
-    # ---- trajectory update ------------------------------------------------
-    state = trajectory_update(
-        state, forcing, cf_x, cf_y, cf_t, heat_flux, do_int, cfg)
+        # ---- trajectory update ----------------------------------------------
+        state = trajectory_update(
+            state, forcing, cf_x, cf_y, cf_t, heat_flux, do_int, cfg)
 
-    # ---- periodic wrap (floe_interactions_all.m:267-277) ------------------
-    if periodic:
-        lx, ly = cfg.domain.lx, cfg.domain.ly
-        x = state.x
-        y = state.y
-        x = torch.where(torch.abs(x) > lx, x - 2 * lx * torch.sign(x), x)
-        y = torch.where(torch.abs(y) > ly, y - 2 * ly * torch.sign(y), y)
-        state = state.replace(x=x, y=y)
+        # ---- periodic wrap (floe_interactions_all.m:267-277) ----------------
+        if periodic:
+            lx, ly = cfg.domain.lx, cfg.domain.ly
+            x = state.x
+            y = state.y
+            x = torch.where(torch.abs(x) > lx, x - 2 * lx * torch.sign(x), x)
+            y = torch.where(torch.abs(y) > ly, y - 2 * ly * torch.sign(y), y)
+            state = state.replace(x=x, y=y)
 
-    # ---- diagnostics ------------------------------------------------------
-    # calc_collisionNum.m: floe-floe contact pairs /2 + boundary contacts; a
-    # floe-vs-topography contact appears once and counts at full weight.
-    i32 = torch.int32
-    if cfg.n_boundary > 0:
-        vs_topo = nbr.idx < cfg.n_boundary
-        n_collisions = (
-            torch.sum(f_valid & ~vs_topo) // 2
-            + torch.sum(f_valid & vs_topo)
-            + torch.sum(b_valid)
-        ).to(i32)
-    else:
-        n_collisions = (torch.sum(f_valid) // 2 + torch.sum(b_valid)).to(i32)
+        # ---- diagnostics ----------------------------------------------------
+        # calc_collisionNum.m: floe-floe contact pairs /2 + boundary
+        # contacts; a floe-vs-topography contact appears once and counts at
+        # full weight.
+        i32 = torch.int32
+        if cfg.n_boundary > 0:
+            vs_topo = nbr.idx < cfg.n_boundary
+            n_collisions = (
+                torch.sum(f_valid & ~vs_topo) // 2
+                + torch.sum(f_valid & vs_topo)
+                + torch.sum(b_valid)
+            ).to(i32)
+        else:
+            n_collisions = (torch.sum(f_valid) // 2
+                            + torch.sum(b_valid)).to(i32)
 
-    aux = StepAux(
-        n_collisions=n_collisions,
-        merge_i=pc.merge_i,
-        merge_j=pc.merge_j,
-        absorb_boundary=bc.absorb,
-        killed=alive_before & ~state.alive,
-        exported=exported,
-        nbr_overflow=nbr.overflow,
-        nbr_demand=nbr.demand,
-        overlap_area=overlap_total,
-        collision_force=torch.stack([cf_x, cf_y], dim=-1),
-        collision_torque=cf_t,
-        nbr_idx=nbr.idx,
-        pair_valid=f_valid,
-        pair_px=pc.px,
-        pair_py=pc.py,
-        pair_fx=pc.fx,
-        pair_fy=pc.fy,
-        pair_overlap=pc.overlap,
-        boundary_contact=b_valid | (bc.overlap > 0),
-        region_overflow=pc.region_overflow | bc.region_overflow,
-        region_pool_need=pc.region_need + bc.region_need,
-        pair_pool_overflow=pc.pair_pool_overflow,
-        pair_pool_need=pc.pair_pool_need,
-    )
-    mark("end")
+        aux = StepAux(
+            n_collisions=n_collisions,
+            merge_i=pc.merge_i,
+            merge_j=pc.merge_j,
+            absorb_boundary=bc.absorb,
+            killed=alive_before & ~state.alive,
+            exported=exported,
+            nbr_overflow=nbr.overflow,
+            nbr_demand=nbr.demand,
+            overlap_area=overlap_total,
+            collision_force=torch.stack([cf_x, cf_y], dim=-1),
+            collision_torque=cf_t,
+            nbr_idx=nbr.idx,
+            pair_valid=f_valid,
+            pair_px=pc.px,
+            pair_py=pc.py,
+            pair_fx=pc.fx,
+            pair_fy=pc.fy,
+            pair_overlap=pc.overlap,
+            boundary_contact=b_valid | (bc.overlap > 0),
+            region_overflow=pc.region_overflow | bc.region_overflow,
+            region_pool_need=pc.region_need + bc.region_need,
+            pair_pool_overflow=pc.pair_pool_overflow,
+            pair_pool_need=pc.pair_pool_need,
+        )
+        mark("end")
     return state, aux
 
 

@@ -20,6 +20,7 @@ import torch
 from ..config import SimConfig
 from ..forcing import Forcing, sample_forcing
 from ..state import FloeState, rotate
+from ..trace import sync
 
 
 def stress_from_sums(state: FloeState, sxx, syy, sxy) -> torch.Tensor:
@@ -190,7 +191,10 @@ def trajectory_update(
     # on device data, so on the other steps it costs one host sync.
     if cfg.physics.ocean_coupling:
         thin = st.h < 0.1
-        need = do_int or bool(torch.any(thin & alive))
+        need = do_int
+        if not need:
+            with sync("thin"):
+                need = bool(torch.any(thin & alive))
         if need:
             fresh = ocean_forcing(st, forcing, cfg)
             refresh = thin | do_int

@@ -17,8 +17,8 @@ The kernel is compiled at first use, from the package's own source, with
 source and flags.  Nothing is built or imported from CUDA when the module is
 imported, so the CPU path works without ``nvcc`` or a GPU.
 
-``clip_stats_cuda.launches`` counts kernel launches (one per call that
-reaches the kernel), so a run can show its main path went through it.
+Each launch adds 1 to the count ``clip.launches`` of the active
+``trace.Table``, so a run can show its main path went through the kernel.
 
 The kernel gives each pair a group of G lanes; ``lane_group(B, Vp, Vq)``
 picks G, and ``tile_bytes`` is the shared memory one block of the kernel
@@ -42,6 +42,7 @@ import torch
 
 from ..geometry.clip import OverlapStats
 from ..geometry.clip_integral import clip_integral_bm, eps_scale
+from ..trace import count
 
 __all__ = [
     "overlap_stats",
@@ -235,12 +236,9 @@ def clip_stats_cuda(p: torch.Tensor, q: torch.Tensor,
                  chord.data_ptr(), ncross.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"clip kernel launch failed: CUDA error {err}")
-    clip_stats_cuda.launches += 1
+    count("clip.launches")
     return OverlapStats(area=area, centroid=cent, chord_p=chord,
                         n_cross=ncross)
-
-
-clip_stats_cuda.launches = 0
 
 
 def clip_stats(p: torch.Tensor, q: torch.Tensor,

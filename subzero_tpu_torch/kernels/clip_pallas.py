@@ -19,8 +19,8 @@ real-edge compaction (``csrc/clip_tile.cuh``), so ``kernels/clip.py:
 tile_bytes`` holds for it at float32, but it has its own lane groups
 (``lane_group``): a pair's G lanes share out both polygons' real edges.
 
-``clip_pallas_cuda.launches`` counts kernel launches (one per call that
-reaches the kernel).
+Each launch adds 1 to the count ``clip_pallas.launches`` of the active
+``trace.Table``, so a run can show its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import torch
 
 from ..geometry.clip import OverlapStats
 from ..geometry.clip_pallas import EPS_SCALE, _clip_pallas
+from ..trace import count
 from .clip import FILL_THREADS, SMEM_LIMIT, _PKG, load_library, tile_bytes
 
 __all__ = [
@@ -140,12 +141,9 @@ def clip_pallas_cuda(p: torch.Tensor, q: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"clip_pallas kernel launch failed: CUDA error "
                            f"{err}")
-    clip_pallas_cuda.launches += 1
+    count("clip_pallas.launches")
     return OverlapStats(area=area, centroid=cent, chord_p=chord,
                         n_cross=ncross)
-
-
-clip_pallas_cuda.launches = 0
 
 
 def clip_pallas_stats(p: torch.Tensor, q: torch.Tensor,

@@ -310,6 +310,14 @@ class StateEdit:
         self.reshapes.update(other.reshapes)
 
     @property
+    def n_slots(self) -> int:
+        """Slots the edit writes: one a birth, plus each existing slot it
+        kills, updates or reshapes."""
+        return len(self.new_floes) + len(
+            self.kills | self.dissolve_kills | self.updates.keys()
+            | self.reshapes.keys())
+
+    @property
     def empty(self) -> bool:
         return (not self.kills and not self.dissolve_kills
                 and not self.new_floes and not self.updates

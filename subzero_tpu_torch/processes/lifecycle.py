@@ -31,6 +31,7 @@ import torch
 
 from ..config import SimConfig
 from ..state import FloeState
+from ..trace import Table, count, recording, span
 from .corners import corners_pass
 from .fracture import fracture_pass
 from .fuse import fuse_floes
@@ -122,6 +123,22 @@ class Lifecycle:
         self.ledger_drift = 0.0
         self.ledger_drift_max = 0.0
 
+    @property
+    def pass_times(self) -> Table:
+        """Host seconds by pass (a :class:`trace.Table`): extract_view,
+        merges, ridge, raft, fracture, corners, weld, simplify, pack,
+        apply_edits; with the counts ``<pass>.slots`` and
+        ``apply_edits.slots``.  Deleting the attribute starts an empty
+        table."""
+        table = self.__dict__.get("pass_times")
+        if table is None:
+            table = self.__dict__["pass_times"] = Table()
+        return table
+
+    @pass_times.setter
+    def pass_times(self, table: Table) -> None:
+        self.__dict__["pass_times"] = table
+
     # ------------------------------------------------------------------
 
     def dues(self, step_idx: int, hints: "dict | None" = None) -> dict:
@@ -173,44 +190,33 @@ class Lifecycle:
         OR'd across the whole device chunk (each resolved against its own
         step's neighbor table); when None they are derived from ``aux``
         (last step only)."""
-        cfg = self.cfg
-
-        want_merge = aux is not None or merge_pairs is not None
         dues = self.dues(step_idx, hints)
-        want_ridge = dues["ridge"]
-        want_raft = dues["raft"]
-        want_frac = dues["frac"]
-        want_corner = dues["corner"]
-        want_simp = dues["simp"]
-        want_pack = dues["pack"]
-        weld_due = dues["weld"]
         # (the every-step small-floe cull runs device-side in physics_step)
-        if want_merge:
-            if merge_pairs is None and aux is not None:
-                merge_i = np.asarray(aux.merge_i)
-                if merge_i.any():
-                    nbr = np.asarray(aux.nbr_idx)
-                    merge_pairs = [
-                        (int(i), int(nbr[i, k]))
-                        for i, k in zip(*np.nonzero(merge_i))
-                    ]
-            want_merge = bool(merge_pairs)
-
-        if not any([want_merge, want_ridge, want_raft, want_frac,
-                    want_corner, want_simp, want_pack, weld_due]):
+        if merge_pairs is None and aux is not None:
+            merge_i = np.asarray(aux.merge_i)
+            if merge_i.any():
+                nbr = np.asarray(aux.nbr_idx)
+                merge_pairs = [
+                    (int(i), int(nbr[i, k]))
+                    for i, k in zip(*np.nonzero(merge_i))
+                ]
+        if not (merge_pairs or any(dues.values())):
             return state, dissolved, False
 
-        import time as _time
+        with recording(self.pass_times):
+            return self._fire(state, aux, step_idx, dissolved, merge_pairs,
+                              view, dues)
 
-        if not hasattr(self, "pass_times"):
-            import collections
-
-            self.pass_times = collections.defaultdict(float)
-        _pt = self.pass_times
+    def _fire(self, state, aux, step_idx, dissolved, merge_pairs, view,
+              dues):
+        """:meth:`step`'s passes, inside the recording of ``pass_times``:
+        each pass's host seconds under its name, and the slots its edit
+        touches as the count ``<pass>.slots``; ``apply_edits.slots``
+        counts the slots written back."""
+        cfg = self.cfg
         if view is None:
-            _t0 = _time.time()
-            view = extract_view(state, cfg)
-            _pt["extract_view"] += _time.time() - _t0
+            with span("extract_view"):
+                view = extract_view(state, cfg)
         if self.shadow_ledger:
             m_in = float(np.sum(view.fields["mass"][view.alive],
                                 dtype=np.float64))
@@ -220,67 +226,70 @@ class Lifecycle:
         boundary_polys = [view.poly(i) for i in range(cfg.n_boundary)
                           if view.polys[i] is not None]
 
+        def merge(name, sub):
+            count(name + ".slots", sub.n_slots)
+            edit.merge(sub)
+
         # ---- contact-flagged merges (floe_interactions_all.m:470-501) ----
-        if want_merge:
-            _t0 = _time.time()
-            self._merges_from_pairs(view, merge_pairs, edit)
-            _pt["merges"] += _time.time() - _t0
+        if merge_pairs:
+            with span("merges"):
+                self._merges_from_pairs(view, merge_pairs, edit)
+            count("merges.slots", edit.n_slots)
 
-        if want_ridge:
-            _t0 = _time.time()
-            edit.merge(self._guarded(view, edit, lambda v: ridge_raft_pass(
-                v, cfg, self.rng, "ridge", self.domain_poly)))
-            _pt["ridge"] += _time.time() - _t0
-        if want_raft:
-            _t0 = _time.time()
-            edit.merge(self._guarded(view, edit, lambda v: ridge_raft_pass(
-                v, cfg, self.rng, "raft", self.domain_poly)))
-            _pt["raft"] += _time.time() - _t0
+        for kind in ("ridge", "raft"):
+            if dues[kind]:
+                with span(kind):
+                    sub = self._guarded(
+                        view, edit, lambda v: ridge_raft_pass(
+                            v, cfg, self.rng, kind, self.domain_poly))
+                merge(kind, sub)
 
-        if want_frac:
-            _t0 = _time.time()
-            deform = self._deform_info(view, aux)
-            edit.merge(self._guarded(
-                view, edit,
-                lambda v: fracture_pass(v, cfg, self.rng, deform)))
-            _pt["fracture"] += _time.time() - _t0
+        if dues["frac"]:
+            with span("fracture"):
+                deform = self._deform_info(view, aux)
+                sub = self._guarded(
+                    view, edit,
+                    lambda v: fracture_pass(v, cfg, self.rng, deform))
+            merge("fracture", sub)
 
-        if want_corner and aux is not None:
-            _t0 = _time.time()
-            edit.merge(self._guarded(
-                view, edit, lambda v: self._corners(v, aux)))
-            _pt["corners"] += _time.time() - _t0
+        if dues["corner"] and aux is not None:
+            with span("corners"):
+                sub = self._guarded(
+                    view, edit, lambda v: self._corners(v, aux))
+            merge("corners", sub)
 
+        weld_due = dues["weld"]
         if weld_due:
-            _t0 = _time.time()
-            # running Amax update (Subzero.m:321-323)
-            cur_max = float(np.max(np.where(view.alive, view.area, 0.0)))
-            if cur_max > self.amax:
-                self.amax = cur_max
-                weld_due = weld_schedule(step_idx, cfg, self.amax)
-            wnx, wny, wmax = weld_due
-            edit.merge(self._guarded(view, edit, lambda v: weld_pass(
-                v, cfg, self.rng, wnx, wny, wmax)))
-            _pt["weld"] += _time.time() - _t0
+            with span("weld"):
+                # running Amax update (Subzero.m:321-323)
+                cur_max = float(np.max(np.where(view.alive, view.area,
+                                                0.0)))
+                if cur_max > self.amax:
+                    self.amax = cur_max
+                    weld_due = weld_schedule(step_idx, cfg, self.amax)
+                wnx, wny, wmax = weld_due
+                sub = self._guarded(view, edit, lambda v: weld_pass(
+                    v, cfg, self.rng, wnx, wny, wmax))
+            merge("weld", sub)
 
-        if want_simp:
-            _t0 = _time.time()
-            edit.merge(self._guarded(
-                view, edit,
-                lambda v: simplify_pass(v, cfg, boundary_polys)))
-            _pt["simplify"] += _time.time() - _t0
+        if dues["simp"]:
+            with span("simplify"):
+                sub = self._guarded(
+                    view, edit,
+                    lambda v: simplify_pass(v, cfg, boundary_polys))
+            merge("simplify", sub)
 
-        if want_pack:
+        if dues["pack"]:
             # coverage from the device floe->cell clip (row 0 = north):
             # skips the per-(cell, floe) native concentration loop
             from ..diagnostics import coverage_fraction
 
-            _t0 = _time.time()
-            conc = coverage_fraction(state, cfg, self.nx, self.ny)
-            edit.merge(self._guarded(view, edit, lambda v: pack_pass(
-                v, cfg, self.rng, self.pack_h0, self.pack_target,
-                self.nx, self.ny, conc=conc)))
-            _pt["pack"] += _time.time() - _t0
+            with span("pack"):
+                conc = coverage_fraction(state, cfg, self.nx, self.ny)
+                sub = self._guarded(view, edit, lambda v: pack_pass(
+                    v, cfg, self.rng, self.pack_h0, self.pack_target,
+                    self.nx, self.ny, conc=conc))
+            merge("pack", sub)
 
         # ---- capacity growth, then guard ----------------------------------
         # vertex-rung growth first: a birth polygon wider than the current
@@ -326,16 +335,16 @@ class Lifecycle:
 
         changed = bool(edit.kills or edit.dissolve_kills or edit.new_floes
                        or edit.updates or edit.reshapes)
-        _t0 = _time.time()
-        state = apply_edits(state, edit, cfg,
-                            seed=int(self.rng.integers(2**31)), view=view)
-        _pt["apply_edits"] += _time.time() - _t0
+        with span("apply_edits"):
+            state = apply_edits(state, edit, cfg,
+                                seed=int(self.rng.integers(2**31)),
+                                view=view)
+        count("apply_edits.slots", edit.n_slots)
         if self.shadow_ledger:
-            _t0 = _time.time()
-            am = torch.stack([state.alive.to(state.mass.dtype),
-                              state.mass]).cpu().numpy()
+            with span("shadow_fetch"):
+                am = torch.stack([state.alive.to(state.mass.dtype),
+                                  state.mass]).cpu().numpy()
             alive2, mass2 = am[0] != 0, am[1]
-            _pt["shadow_fetch"] += _time.time() - _t0
             m_out = float(np.sum(mass2[alive2], dtype=np.float64))
             dis_out = float(np.sum(dissolved, dtype=np.float64))
             drift = ((m_out + dis_out + self.exported_mass)
@@ -346,11 +355,11 @@ class Lifecycle:
             if abs(drift) > 1e-6 * max(m_in, 1.0):
                 print(f"[ledger] step {step_idx}: lifecycle drift "
                       f"{drift:+.3e} kg ({drift / max(m_in, 1.0):+.2e} "
-                      f"rel) — passes: merge={want_merge} "
-                      f"ridge={want_ridge} raft={want_raft} "
-                      f"frac={want_frac} corner={want_corner} "
-                      f"simp={want_simp} pack={want_pack} "
-                      f"weld={bool(weld_due)}")
+                      f"rel) — passes: merge={bool(merge_pairs)} "
+                      f"ridge={dues['ridge']} raft={dues['raft']} "
+                      f"frac={dues['frac']} corner={dues['corner']} "
+                      f"simp={dues['simp']} pack={dues['pack']} "
+                      f"weld={bool(dues['weld'])}")
         return state, dissolved, changed
 
     # ------------------------------------------------------------------

@@ -43,6 +43,7 @@ from .diagnostics import (
 from .dynamics.step import StepAux, domain_polygon, physics_step
 from .forcing import Forcing, gyre_ocean
 from .state import FloeState
+from .trace import Table, recording, span, sync
 
 __all__ = ["Simulation", "out_of_box_sim", "chunk_merge_pairs"]
 
@@ -155,9 +156,9 @@ class Simulation:
             # recreates the Lifecycle before _maybe_shrink_pools runs)
             self.lifecycle.last_birth_nv = getattr(
                 old_lc, "last_birth_nv", 0)
-            if hasattr(old_lc, "pass_times"):
-                # keep accumulated pass timings across mid-run rebuilds
-                self.lifecycle.pass_times = old_lc.pass_times
+            # keep accumulated pass timings across mid-run rebuilds (the
+            # same table: a rebuild inside Lifecycle.step records on)
+            self.lifecycle.pass_times = old_lc.pass_times
             self.lifecycle.exported_mass = old_lc.exported_mass
             self.lifecycle.shadow_ledger = old_lc.shadow_ledger
             self.lifecycle.ledger_drift = old_lc.ledger_drift
@@ -590,10 +591,18 @@ class Simulation:
         the lifecycle — including its state extraction — runs only when a
         pass is actually due (by cadence AND the device-derived skip hints)
         or a merge was flagged.  Everything else stays on the device
-        between output boundaries.
+        between output boundaries.  The host seconds of each phase go to
+        :attr:`phase_times`, the physics step's own spans nested under
+        "chunk".
         """
+        with recording(self.phase_times):
+            return self._advance(n_steps, on_chunk, log_every)
+
+    def _advance(self, n_steps: int, on_chunk, log_every: int
+                 ) -> "Simulation":
+        """:meth:`run`'s loop, inside the recording of ``phase_times``."""
         done = 0
-        t0 = time.time()
+        t0 = time.perf_counter()
         if self.cfg.capacity.verts_auto and not getattr(
                 self, "_verts_fit", False):
             self._verts_fit = True
@@ -623,7 +632,6 @@ class Simulation:
                 self._eul_n = 0
         else:
             eul_acc = None
-        phases = self.phase_times
         while done < n_steps:
             # land on multiples of the chunk so process cadences stay on
             # chunk boundaries even after a partial run() call
@@ -631,21 +639,23 @@ class Simulation:
                     n_steps - done)
             if self.wall_fn is not None:
                 self._update_walls()
-            tp = time.time()
-            for attempt in range(8):
-                (st2, dis2, vd2, eul2, auxes, summary) = self._run_chunk(
-                    self.state, self.step_idx, n, dissolved, vd_tend,
-                    eul_acc, self._domain,
-                )
-                # ONE device->host copy per chunk
-                s = summary.cpu().numpy()
-                # a capacity pool overflowed: the step ran with degraded
-                # physics (aggregate-contact fallback / dropped candidate
-                # contacts) — the cfg was grown and the step rebuilt; RE-RUN
-                # the chunk from the same inputs so no degraded step survives
-                if not self._grow_pools(s):
-                    break
-            phases["chunk"] += time.time() - tp
+            with span("chunk"):
+                for attempt in range(8):
+                    (st2, dis2, vd2, eul2, auxes,
+                     summary) = self._run_chunk(
+                        self.state, self.step_idx, n, dissolved, vd_tend,
+                        eul_acc, self._domain,
+                    )
+                    # ONE device->host copy per chunk
+                    with sync("summary"):
+                        s = summary.cpu().numpy()
+                    # a capacity pool overflowed: the step ran with
+                    # degraded physics (aggregate-contact fallback /
+                    # dropped candidate contacts) — the cfg was grown and
+                    # the step rebuilt; RE-RUN the chunk from the same
+                    # inputs so no degraded step survives
+                    if not self._grow_pools(s):
+                        break
             self.state, dissolved, vd_tend, eul_acc = st2, dis2, vd2, eul2
             self.step_idx += n
             done += n
@@ -674,81 +684,78 @@ class Simulation:
                 # merge was flagged)
                 from .processes.host import unpack_view, view_width
 
-                tp = time.time()
-                # a mesh's aux as the global arrays: every rank reaches
-                # this boundary (the summary is reduced over the mesh, the
-                # lifecycle is shared)
-                baux = auxes if self.mesh is None else _gather_chunk(
-                    auxes, self.mesh,
-                    ("merge_i", "nbr_idx") if merge_any else ())
-                nn = self.state.n
-                kk = self.cfg.capacity.max_neighbors
-                w1 = view_width(self.state.v_cap)
-                cap_a = getattr(self, "_aux_cap", 512)
-                self._aux_cap = cap_a
-                wa = -(-(8 * cap_a + 1) // nn)
-                if merge_any:
-                    packed = _pack_boundary_merges(
-                        self.state, baux, dissolved, cap_a).cpu().numpy()
-                else:
-                    packed = _pack_boundary(
-                        self.state, baux.last, dissolved,
-                        cap_a).cpu().numpy()
-                view = unpack_view(packed[:, :w1], nn)
-                bc_col = packed[:, w1]
-                avals = packed[:, w1 + 1:w1 + 1 + wa].T.reshape(-1)
-                a_count = int(avals[0])
-                if a_count > cap_a:
-                    # contact-entry pool overflow: dense fallback this
-                    # boundary (one extra copy) and raise the cap
-                    while cap_a < a_count * 1.25:
-                        cap_a *= 2
+                with span("aux_fetch"):
+                    # a mesh's aux as the global arrays: every rank
+                    # reaches this boundary (the summary is reduced over
+                    # the mesh, the lifecycle is shared)
+                    baux = auxes if self.mesh is None else _gather_chunk(
+                        auxes, self.mesh,
+                        ("merge_i", "nbr_idx") if merge_any else ())
+                    nn = self.state.n
+                    kk = self.cfg.capacity.max_neighbors
+                    w1 = view_width(self.state.v_cap)
+                    cap_a = getattr(self, "_aux_cap", 512)
                     self._aux_cap = cap_a
-                    aux_last = _unpack_aux(
-                        _pack_aux_last(baux.last).cpu().numpy())
-                else:
-                    aux_last = _unpack_aux_compact(
-                        avals[1:1 + 8 * cap_a], bc_col, nn, kk)
-                w2c = 1 + wa
-                nd = self.ny_coarse * self.nx_coarse
-                wd = -(-nd // nn)
-                dis_np = np.asarray(
-                    packed[:, w1 + w2c:w1 + w2c + wd].T.reshape(-1)[:nd]
-                    .reshape(self.ny_coarse, self.nx_coarse), np.float64)
-                phases["aux_fetch"] += time.time() - tp
-                tp = time.time()
-                if merge_any:
-                    vals = packed[:, w1 + w2c + wd:].T.reshape(-1)
-                    cnt = int(vals[0])
-                    if cnt > _MERGE_POOL:
-                        # pool overflow (storm-scale merge burst): fall
-                        # back to the full chunk merge tables
-                        mk = _pack_merges(baux).cpu().numpy()
-                        merge_pairs = _merge_pairs_from(
-                            mk[..., 0] != 0, mk[..., 1].astype(np.int64), n)
+                    wa = -(-(8 * cap_a + 1) // nn)
+                    if merge_any:
+                        packed = _pack_boundary_merges(
+                            self.state, baux, dissolved, cap_a).cpu().numpy()
                     else:
-                        pool = vals[1:1 + 2 * cnt].astype(np.int64
-                                                          ).reshape(-1, 2)
-                        merge_pairs = list(dict.fromkeys(
-                            (int(i), int(j)) for i, j in pool))
-                else:
-                    merge_pairs = []
-                phases["merge_fetch"] += time.time() - tp
-                tp = time.time()
-                self.state, dis_np, changed = self.lifecycle.step(
-                    self.state, aux_last, self.step_idx, dis_np,
-                    merge_pairs=merge_pairs, hints=hints, view=view,
-                )
-                phases["lifecycle"] += time.time() - tp
-                tp = time.time()
-                if self.cfg is not self._built_cfg:
-                    # the lifecycle grew the floe capacity or the vertex
-                    # rung: rebuild (which rebalances a mesh's slabs with
-                    # the new cfg itself)
-                    self.__post_init__()
-                elif changed and self.mesh is not None:
-                    self.state = self._reshard(self.state)
-                phases["rebuild"] += time.time() - tp
+                        packed = _pack_boundary(
+                            self.state, baux.last, dissolved,
+                            cap_a).cpu().numpy()
+                    view = unpack_view(packed[:, :w1], nn)
+                    bc_col = packed[:, w1]
+                    avals = packed[:, w1 + 1:w1 + 1 + wa].T.reshape(-1)
+                    a_count = int(avals[0])
+                    if a_count > cap_a:
+                        # contact-entry pool overflow: dense fallback this
+                        # boundary (one extra copy) and raise the cap
+                        while cap_a < a_count * 1.25:
+                            cap_a *= 2
+                        self._aux_cap = cap_a
+                        aux_last = _unpack_aux(
+                            _pack_aux_last(baux.last).cpu().numpy())
+                    else:
+                        aux_last = _unpack_aux_compact(
+                            avals[1:1 + 8 * cap_a], bc_col, nn, kk)
+                    w2c = 1 + wa
+                    nd = self.ny_coarse * self.nx_coarse
+                    wd = -(-nd // nn)
+                    dis_np = np.asarray(
+                        packed[:, w1 + w2c:w1 + w2c + wd].T.reshape(-1)[:nd]
+                        .reshape(self.ny_coarse, self.nx_coarse), np.float64)
+                with span("merge_fetch"):
+                    if merge_any:
+                        vals = packed[:, w1 + w2c + wd:].T.reshape(-1)
+                        cnt = int(vals[0])
+                        if cnt > _MERGE_POOL:
+                            # pool overflow (storm-scale merge burst): fall
+                            # back to the full chunk merge tables
+                            mk = _pack_merges(baux).cpu().numpy()
+                            merge_pairs = _merge_pairs_from(
+                                mk[..., 0] != 0,
+                                mk[..., 1].astype(np.int64), n)
+                        else:
+                            pool = vals[1:1 + 2 * cnt].astype(np.int64
+                                                              ).reshape(-1, 2)
+                            merge_pairs = list(dict.fromkeys(
+                                (int(i), int(j)) for i, j in pool))
+                    else:
+                        merge_pairs = []
+                with span("lifecycle"):
+                    self.state, dis_np, changed = self.lifecycle.step(
+                        self.state, aux_last, self.step_idx, dis_np,
+                        merge_pairs=merge_pairs, hints=hints, view=view,
+                    )
+                with span("rebuild"):
+                    if self.cfg is not self._built_cfg:
+                        # the lifecycle grew the floe capacity or the
+                        # vertex rung: rebuild (which rebalances a mesh's
+                        # slabs with the new cfg itself)
+                        self.__post_init__()
+                    elif changed and self.mesh is not None:
+                        self.state = self._reshard(self.state)
                 dissolved = torch.as_tensor(dis_np, dtype=dt_, device=dev)
                 self.dissolved = dis_np
             # Surface per-region pool overflow: those steps fell back to
@@ -773,10 +780,9 @@ class Simulation:
             # than the straight run and resizes at different steps
             self._maybe_shrink_pools(s)
             if self.output_dir is not None:
-                tp = time.time()
-                self.dissolved = dissolved.cpu().numpy()
-                eul_acc = self._auto_output(eul_acc)
-                phases["output"] += time.time() - tp
+                with span("output"):
+                    self.dissolved = dissolved.cpu().numpy()
+                    eul_acc = self._auto_output(eul_acc)
             if on_chunk is not None:
                 self.dissolved = dissolved.cpu().numpy()
                 on_chunk(self, auxes if self.mesh is None
@@ -784,7 +790,7 @@ class Simulation:
             if log_every and (self.step_idx % log_every == 0):
                 self.record_metrics(ncol)
                 m = self.metrics_history()
-                rate = done / max(time.time() - t0, 1e-9)
+                rate = done / max(time.perf_counter() - t0, 1e-9)
                 print(
                     f"step {self.step_idx}: {m['alive'][-1]} floes, "
                     f"{m['collisions'][-1]} collisions, {rate:.1f} steps/s"
@@ -881,33 +887,35 @@ class Simulation:
         m["mass"].append(float(total_mass(self.state)))
 
     @property
-    def phase_times(self) -> dict:
-        """Accumulated host wall-time per driver phase (seconds): chunk
-        (the steps and the summary copy), the boundary's aux/merge copies,
-        lifecycle host passes, rebuilds, output IO."""
-        if not hasattr(self, "_phase_times"):
-            import collections
-
-            self._phase_times = collections.defaultdict(float)
-        return self._phase_times
+    def phase_times(self) -> Table:
+        """Host seconds by span (a :class:`trace.Table`): the driver's
+        phases at the top level — chunk (the steps, and the summary copy
+        that waits for the card), the boundary's aux/merge copies,
+        lifecycle host passes, rebuilds, output IO — and the step's spans
+        nested under "chunk"; with entry counts and the named counts
+        (the clip kernels' launches).  Kept at ``_phase_times``; deleting that
+        attribute starts an empty table."""
+        table = self.__dict__.get("_phase_times")
+        if table is None:
+            table = self.__dict__["_phase_times"] = Table()
+        return table
 
     def phase_report(self) -> str:
-        """Human-readable phase breakdown, including the lifecycle's
-        per-pass times."""
-        lines = ["phase breakdown (accumulated wall seconds):"]
-        total = sum(self.phase_times.values())
-        for k, v in sorted(self.phase_times.items(), key=lambda kv: -kv[1]):
-            lines.append(f"  {k:16s} {v:9.2f} s  {100 * v / max(total, 1e-9):5.1f}%")
-        pt = getattr(self.lifecycle, "pass_times", None)
-        if pt:
+        """Human-readable span tree with self times (a share is of the
+        top-level spans' total, so nested spans count once), then the
+        lifecycle's per-pass times and edit counts."""
+        lines = ["phase breakdown (host seconds; self = less nested spans):"]
+        lines += self.phase_times.report()
+        pt = self.lifecycle.pass_times
+        if pt or pt.counts:
             lines.append("lifecycle passes:")
-            for k, v in sorted(pt.items(), key=lambda kv: -kv[1]):
-                lines.append(f"  {k:16s} {v:9.2f} s")
+            lines += pt.report()
         return "\n".join(lines)
 
     def profile(self, path: str, n_steps: int = 10) -> str:
         """Run ``n_steps`` under ``torch.profiler`` (CPU and, on a CUDA
-        state, CUDA activity); the Chrome trace goes to ``path``."""
+        state, CUDA activity); the Chrome trace goes to ``path``, with the
+        program's spans as ``subzero.<path>`` ranges beside the kernels."""
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]

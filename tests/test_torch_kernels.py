@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from subzero_tpu_torch import trace
 from subzero_tpu_torch.geometry.clip_integral import clip_integral_bm
 from subzero_tpu_torch.geometry.clip_pallas import _clip_pallas
 from subzero_tpu_torch.geometry.polygon import pad_polygons
@@ -123,12 +124,12 @@ def test_module_serves_cpu_without_building(monkeypatch):
     monkeypatch.setattr(kclip, "build", no_build)
     p, q = pairs(13, seed=0)
     pt, qt = torch.from_numpy(p), torch.from_numpy(q)
-    before = kclip.clip_stats_cuda.launches
-    got = kclip.overlap_stats(pt, qt)
+    with trace.recording(trace.Table()) as table:
+        got = kclip.overlap_stats(pt, qt)
     want = clip_integral_bm(pt, qt, False)
     assert torch.equal(got.area, want.area)
     assert torch.equal(got.n_cross, want.n_cross)
-    assert kclip.clip_stats_cuda.launches == before
+    assert "clip.launches" not in table.counts
 
 
 def test_kernel_entry_refuses_cpu_tensors():
@@ -226,6 +227,18 @@ def test_pallas_kernel_on_coastline_pair():
     assert float(twin.area[0]) > 9e8
 
 
+@pytest.mark.cuda
+def test_each_kernel_counts_its_launches_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    pt, qt = (torch.from_numpy(x).to("cuda") for x in pairs(13, seed=2))
+    with trace.recording(trace.Table()) as table:
+        kclip.overlap_stats(pt, qt)
+        kclip.difference_stats(pt, qt)
+        kpallas.overlap_stats_pallas(pt, qt)
+    assert table.counts == {"clip.launches": 2, "clip_pallas.launches": 1}
+
+
 def test_pallas_module_serves_cpu_without_building(monkeypatch):
     def no_build():
         raise AssertionError("the CPU path must not build the kernel")
@@ -233,13 +246,13 @@ def test_pallas_module_serves_cpu_without_building(monkeypatch):
     monkeypatch.setattr(kpallas, "build", no_build)
     p, q = pairs(13, seed=0)
     pt, qt = torch.from_numpy(p), torch.from_numpy(q)
-    before = kpallas.clip_pallas_cuda.launches
-    got = kpallas.overlap_stats_pallas(pt, qt)
+    with trace.recording(trace.Table()) as table:
+        got = kpallas.overlap_stats_pallas(pt, qt)
     want = _clip_pallas(pt, qt, False)
     assert got.area.dtype == torch.float32
     assert torch.equal(got.area, want.area)
     assert torch.equal(got.n_cross, want.n_cross)
-    assert kpallas.clip_pallas_cuda.launches == before
+    assert "clip_pallas.launches" not in table.counts
     with pytest.raises(ValueError, match="CUDA"):
         kpallas.clip_pallas_cuda(pt.float(), qt.float(), False)
 
