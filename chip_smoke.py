@@ -7,12 +7,12 @@ GPU: the quickest proof that the port builds and runs its main path there.
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
 
-1. Build both CUDA kernels at once, one nvcc each:
+1. Build the three CUDA kernels at once, one nvcc each:
    ``subzero_tpu_torch/csrc/clip.cu`` (the XLA twin's clip, the default
-   "integral" route) and ``csrc/clip_pallas.cu`` (the Pallas kernel's,
-   phase 2b); print ptxas's registers, spills and static shared memory
-   for every template instance, and check the wrapper's shared-memory
-   mirror.
+   "integral" route), ``csrc/clip_pallas.cu`` (the Pallas kernel's,
+   phase 2b) and ``csrc/broadphase.cu`` (the dense broad phase, phase 2c);
+   print ptxas's registers, spills and static shared memory for every
+   template instance, and check clip.cu's shared-memory mirror.
 2. Hold clip.cu's kernel against its plain PyTorch version on the card, on seeded
    random convex and concave pairs at 1000 m scale, float32 and float64,
    intersection and difference: B=13, 81,920 and 81,921 (ragged last
@@ -46,6 +46,17 @@ prints no result):
    lattice under "pallas", CPU against CUDA in float64 for 20 steps:
    positions within 1e-2 m and velocities within 1e-3 m/s (the stats are
    float32 on both devices, see ``PALLAS_TOL_POS``), the same counts.
+2c. The dense broad phase's kernel (``csrc/broadphase.cu``) against its
+   plain version (``dynamics/broadphase.py:neighbor_candidates_plain``) on
+   the card: idx, valid, shift, overflow and demand equal, bit for bit, at
+   start states of the three benchmark cells' recipes at their scale
+   (``BP_FIELDS``, built by the port's Voronoi field and state
+   constructors: 20,000 float64 slots walled, 20,000 float32 slots
+   periodic, 400 float32 slots walled; K grown on the state's demand as
+   ``Simulation`` grows it) and at the first one's ~10,000 live floes alone;
+   one launch a call.  Each timed alone on the card
+   beside the plain version, with its bound (8 operations a pair test, 16
+   on the torus, at 34 or 67 TFLOP/s) and share.
 3. CPU against CUDA in float64, from the same numpy inputs, through
    ``make_step_fn(device="cpu")`` (plain clip) and ``device="cuda"``
    (kernel): a walled 256-quad lattice in aggregate mode for 20 steps; a
@@ -69,7 +80,8 @@ prints no result):
    runs the kernel is held against the plain version (and timed) on the
    quad lattice's first-step pairs and on the stars' active-pair pool
    batch.  The kernel's launch counter is zeroed before each run and must
-   read one launch per periodic step and two per walled step.  Then
+   read one launch per periodic step and two per walled step; the broad
+   phase's one a step (none under the cell list).  Then
    ``contact_forces`` and ``boundary_contact`` run per-region and with the
    active-pair pool on run (b)'s end state under
    ``torch.cuda.set_sync_debug_mode("error")``: no host sync.
@@ -100,7 +112,8 @@ prints no result):
    60, 10 warm-up steps, then 30 timed steps (cut from 150: the host passes
    take ~4.4 s a step at this size) through ``Simulation.run`` with the
    launch counts (the step's and the lifecycle's tables) zeroed just
-   before and read just after.  It prints
+   before and read just after (the broad phase's kernel at least once a
+   step).  It prints
    floe-steps/s of the driver and of the bare ``make_step_fn`` step on the
    same state, ``phase_report()`` with the lifecycle's per-pass seconds,
    the live floe count before and after, peak memory and clip launches
@@ -172,7 +185,11 @@ time alone, the wrapper's host time per call, the plain version's time,
 and the bound with the kernel's share of it; per run floe-steps/s,
 per-phase CUDA-event times, peak memory, the region-pool sizes and the
 largest region-pool demand.  The line before last holds the card's name
-and power limit; before it, one JSON object with both kernels' records:
+and power limit; before it, one JSON object with the kernels' records
+(broadphase.cu's timed at phase 2c's first field, its ``max_abs_err``
+the largest difference of idx and shift over phase 2c's fields, its
+``launches`` summed over the seven phase-4 runs, one a step on the dense
+route, and the phase-6 run;
 clip_pallas.cu's timed at the main path's overlap pairs, its ``launches``
 from phase 2b (b)'s two runs; clip.cu's ``launches`` summed over the
 seven phase-4 runs, the phase-6 run (the
@@ -211,6 +228,11 @@ def launch_counts(table):
     counts."""
     c = table.counts
     return c.get("clip.launches", 0), c.get("clip_pallas.launches", 0)
+
+
+def bp_launches(table):
+    """csrc/broadphase.cu launches in a ``trace.Table``'s counts."""
+    return table.counts.get("broadphase.launches", 0)
 
 
 def sim_launches(sim):
@@ -483,15 +505,17 @@ def ptxas_instances(log):
 
 
 def phase_build():
-    """Both kernel sources built at once, one nvcc each."""
+    """The three kernel sources built at once, one nvcc each."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
+    from subzero_tpu_torch.kernels import broadphase as kbp
     from subzero_tpu_torch.kernels import clip as kclip
     from subzero_tpu_torch.kernels import clip_pallas as kpallas
 
     t0 = time.perf_counter()
-    mods = (("clip.cu", kclip), ("clip_pallas.cu", kpallas))
+    mods = (("clip.cu", kclip), ("clip_pallas.cu", kpallas),
+            ("broadphase.cu", kbp))
     with ThreadPoolExecutor(len(mods)) as pool:
         libs = list(pool.map(lambda m: m[1].build(), mods))
     lib = libs[0]
@@ -506,7 +530,7 @@ def phase_build():
             log(f"[build] ptxas {r['name']}: {r.get('regs')} registers, "
                 f"{r.get('spill_st')} B spill stores, {r.get('spill_ld')} B "
                 f"spill loads, {r.get('smem')} B static shared memory")
-    log(f"[build] both sources in {time.perf_counter() - t0:.3f} s")
+    log(f"[build] all sources in {time.perf_counter() - t0:.3f} s")
     # the wrapper's shared-memory mirror must equal the kernel's own
     fn = lib.clip_tile_bytes
     fn.argtypes = [ctypes.c_int] * 4
@@ -674,6 +698,153 @@ def phase_wide_shapes():
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the dense broad phase's kernel
+# ---------------------------------------------------------------------------
+
+# Peak rates of one H100 SXM outside the tensor cores (NVIDIA's data sheet)
+F64_FLOPS = 34e12
+F32_FLOPS = 67e12
+HBM_BYTES = 3.35e12
+BP_SEED = 2026101813      # the cells' floe order and RNG
+
+
+def broadphase_field(lx, n_floes, grid, dtype, periodic, seed, device):
+    """The positions, radii and liveness of a Voronoi floe field built by
+    the port's own constructors (``init.voronoi_floe_field``,
+    ``state.state_from_polygons``) on ``2 n_floes`` slots, with the
+    published recipes' 4e6 m^2 Voronoi cull, and the state's config."""
+    from subzero_tpu_torch.config import (
+        CapacityConfig, DomainConfig, NumericsConfig, ProcessConfig,
+        SimConfig,
+    )
+    from subzero_tpu_torch.init import voronoi_floe_field
+    from subzero_tpu_torch.state import state_from_polygons
+
+    cfg = SimConfig(
+        processes=ProcessConfig(periodic=periodic),
+        numerics=NumericsConfig(dtype=dtype),
+        domain=DomainConfig(lx=lx, ly=lx),
+        capacity=CapacityConfig(max_floes=2 * n_floes, max_verts=64,
+                                max_neighbors=12, n_mc_points=400,
+                                stress_window=1000))
+    polys, heights = voronoi_floe_field(cfg, np.ones((grid, grid)), n_floes,
+                                        height_mean=1.0, min_floe_size=4e6,
+                                        seed=seed)
+    st = state_from_polygons(polys, heights, cfg, seed=seed, device=device)
+    return (st.x, st.y, st.rmax, st.alive), cfg
+
+
+# Phase 2c's fields: the three benchmark cells' recipes at their scale
+# (half-width m, floes, target-concentration grid, dtype, periodic)
+BP_FIELDS = (("uniaxial-10k", 707000.0, 10000, 25, "float64", False),
+             ("winter-10k", 1e6, 10000, 25, "float32", True),
+             ("uniaxial-200", 1e5, 200, 1, "float32", False))
+
+
+def broadphase_inputs(seed=BP_SEED, device="cuda"):
+    """Phase 2c's inputs: a start state of each benchmark cell's recipe at
+    its scale (``BP_FIELDS``), and the first one's live floes alone,
+    ``[(label, (x, y, rmax, alive), k, periodic, lx, ly, n_skip)]``.  K is
+    the recipes' ``max_neighbors``, grown as ``Simulation._grow_pools``
+    grows it on this state's demand."""
+    from subzero_tpu_torch.dynamics.broadphase import neighbor_candidates
+    from subzero_tpu_torch.sim import _ladder_k
+
+    out = []
+    for name, lx, n_floes, grid, dtype, periodic in BP_FIELDS:
+        args, cfg = broadphase_field(lx, n_floes, grid, dtype, periodic,
+                                     seed, device)
+        k, n_skip = cfg.capacity.max_neighbors, cfg.n_boundary
+        demand = int(neighbor_candidates(*args, k, periodic, lx, lx,
+                                         n_skip_rows=n_skip).demand)
+        if demand > k:
+            k = min(_ladder_k(max(int(demand * 1.1) + 1, k + 1)),
+                    args[0].shape[0])
+        out.append((f"{name} ({args[0].dtype}, "
+                    f"{'periodic' if periodic else 'walled'})", args, k,
+                    periodic, lx, lx, n_skip))
+    # the first field's live floes alone (without its dead slots)
+    label, args, k, periodic, lx, ly, n_skip = out[0]
+    keep = args[3].clone()
+    keep[:n_skip] = True
+    live = tuple(a[keep].contiguous() for a in args)
+    name = BP_FIELDS[0][0]
+    out.insert(1, (f"{name} live floes{label[len(name):]}", live, k,
+                   periodic, lx, ly, n_skip))
+    return out
+
+
+def broadphase_bound_ms(args, k, periodic, n_skip):
+    """(least ms, "operations" or "bytes") of the table at these inputs:
+    8 operations a pair test (16 on the torus) over the rows that test (alive
+    and not skipped) against every source slot, at the dtype's rate; or
+    every input byte read once and the table written once."""
+    x, _, _, alive = args
+    n, item = x.shape[0], x.element_size()
+    rows = int(alive[n_skip:].sum())
+    ops = rows * n * (16 if periodic else 8)
+    rate = F64_FLOPS if item == 8 else F32_FLOPS
+    nbytes = n * (3 * item + 1) + n * k * (4 + 1 + 2 * item) + 4
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_broadphase(record):
+    """Phase 2c: the dense broad phase's kernel (``csrc/broadphase.cu``)
+    against its plain version on the card, bit for bit in every field of
+    the table, at the three benchmark cells' start states and the first
+    one's live floes; each timed alone on the card (``card_ms``) beside the
+    plain version, with its bound and share."""
+    import torch
+
+    from subzero_tpu_torch import trace
+    from subzero_tpu_torch.dynamics import broadphase as bp
+
+    t0 = time.perf_counter()
+    cases = broadphase_inputs()
+    log(f"[broadphase] built the cells' start states in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fields = ("idx", "valid", "shift", "overflow", "demand")
+    for label, args, k, periodic, lx, ly, n_skip in cases:
+        def kernel():
+            return bp.neighbor_candidates(*args, k, periodic, lx, ly,
+                                          n_skip_rows=n_skip)
+
+        def plain():
+            return bp.neighbor_candidates_plain(*args, k, periodic, lx, ly,
+                                                n_skip_rows=n_skip)
+
+        with trace.recording(trace.Table()) as table:
+            got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        for f in fields:
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"broad phase {label}: {f} differs "
+                                     f"from the plain version's")
+        err = max(float((getattr(got, f).double() - getattr(want, f).double()
+                         ).abs().max()) for f in ("idx", "shift"))
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        if bp_launches(table) != 1:
+            raise AssertionError(f"broad phase {label}: "
+                                 f"{bp_launches(table)} launches")
+        ms, host_us = card_ms(kernel)
+        plain_ms, _ = card_ms(plain, reps=3, warmup=1)
+        bound, by = broadphase_bound_ms(args, k, periodic, n_skip)
+        n = args[0].shape[0]
+        log(f"[broadphase] {label}: N=M={n}, K={k}, demand "
+            f"{int(want.demand)}, {int(want.valid.sum())} candidates: table "
+            f"equal; kernel alone {ms:.4f} ms ({host_us:.1f} us host a "
+            f"call), bound {bound:.4f} ms ({by}), share {bound / ms:.1%}; "
+            f"plain {plain_ms:.3f} ms ({plain_ms / ms:.0f}x)")
+        if "ms" not in record:
+            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by)
+        del got, want
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 2b: contact_impl="pallas", the Pallas kernel's clip
 # ---------------------------------------------------------------------------
 
@@ -825,7 +996,7 @@ def phase_pallas(record, built):
         cfg = cfg.replace(numerics=dataclasses.replace(
             cfg.numerics, contact_impl="pallas"))
         torch.cuda.reset_peak_memory_stats()
-        (other, launches), rate, phase, s, aux, most = run_main_path(
+        (other, launches, _), rate, phase, s, aux, most = run_main_path(
             st0, cfg, fc)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         want = (STEPS + 1) * (1 if cfg.processes.periodic else 2)
@@ -986,8 +1157,8 @@ def phase_step_parity():
 
 def run_main_path(state, cfg, forcing):
     """Warm-up step + STEPS timed steps; returns ((clip.cu launches,
-    clip_pallas.cu launches), rate, phase ms per step, final state, aux,
-    timed-step maxima).  The maxima of the
+    clip_pallas.cu launches, broadphase.cu launches), rate, phase ms per
+    step, final state, aux, timed-step maxima).  The maxima of the
     pool demands and the OR of the overflow flags over the timed steps are
     gathered on the device and read after the timing."""
     import torch
@@ -1023,7 +1194,15 @@ def run_main_path(state, cfg, forcing):
         if name != "end":
             phase[name] = phase.get(name, 0.0) + a.elapsed_time(b) / STEPS
     most = {k: int(v) for k, v in zip(keys, most)}
-    return launch_counts(table), state.n * STEPS / wall, phase, s, aux, most
+    # the dense broad phase launches its kernel once a step, the cell list
+    # (run (c)'s grid is wide enough for it) never
+    want = 0 if cfg.numerics.broadphase == "cells" else STEPS + 1
+    if bp_launches(table) != want:
+        raise AssertionError(f"{bp_launches(table)} broad-phase kernel "
+                             f"launches in {STEPS + 1} steps, expected "
+                             f"{want}")
+    return ((*launch_counts(table), bp_launches(table)),
+            state.n * STEPS / wall, phase, s, aux, most)
 
 
 def captured_clip_inputs(call):
@@ -1113,7 +1292,7 @@ def main_path_runs():
     return runs, (stars, cfg_s, cfg_pool, slx)
 
 
-def phase_main_path(kernel_record, built):
+def phase_main_path(kernel_record, built, bp_record):
     import torch
 
     from subzero_tpu_torch.dynamics import contact as tcontact
@@ -1165,7 +1344,7 @@ def phase_main_path(kernel_record, built):
     for label, st0, fc, cfg in runs:
         periodic = cfg.processes.periodic
         torch.cuda.reset_peak_memory_stats()
-        (launches, other), rate, phase, s, aux, most = run_main_path(
+        (launches, other, bp_n), rate, phase, s, aux, most = run_main_path(
             st0, cfg, fc)
         want = (STEPS + 1) * (1 if periodic else 2)
         pools = (region_pool_slots(cfg) if cfg.contact.per_region
@@ -1201,6 +1380,7 @@ def phase_main_path(kernel_record, built):
                                      f"or never ran (aggregate fallback)")
             stars_end = s
         total += launches
+        bp_record["launches"] += bp_n
     kernel_record["launches"] = total
     phase_sync_check(stars_end, cfg_s, cfg_pool, slx)
     return runs, results
@@ -1601,7 +1781,7 @@ def big_winter(seed=0):
     return sim, len(polys)
 
 
-def phase_big_run(kernel_record):
+def phase_big_run(kernel_record, bp_record):
     """Phase 6: the scaled winter pack through ``Simulation.run`` in
     float32 on CUDA — the port's main path at full size."""
     import torch
@@ -1663,6 +1843,7 @@ def phase_big_run(kernel_record):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = sim_launches(sim)
+        bp_steps = bp_launches(sim.phase_times)
     finally:
         Simulation._grow_pools = orig
         tlc.apply_edits, tlc.Lifecycle.step = orig_apply, orig_step
@@ -1675,7 +1856,12 @@ def phase_big_run(kernel_record):
         f"{BIG_WARMUP} warm-up steps: {rate:.1f} floe-steps/s over "
         f"{sim.state.n} slots ({live_rate:.1f} over the {alive0} live "
         f"floes); live floes {alive0} -> {alive1}; peak memory {peak:.2f} "
-        f"GiB; clip launches {launches}; chunk {sim._chunk} steps")
+        f"GiB; clip launches {launches}; broad-phase kernel launches "
+        f"{bp_steps}; chunk {sim._chunk} steps")
+    if bp_steps < BIG_STEPS:
+        raise AssertionError(f"phase 6: {bp_steps} broad-phase kernel "
+                             f"launches in {BIG_STEPS} steps")
+    bp_record["launches"] += bp_steps
     for line in sim.phase_report().splitlines():
         log(f"[big] {line}")
     lc = sim.lifecycle
@@ -2024,8 +2210,8 @@ def phase_remainder(runs, results, kernel_record):
     cfg = cfg.replace(numerics=dataclasses.replace(cfg.numerics,
                                                    contact_impl="xla"))
     torch.cuda.reset_peak_memory_stats()
-    (launches, other), rate, phase, s, aux, _ = run_main_path(quads, cfg,
-                                                              forcing)
+    (launches, other, _), rate, phase, s, aux, _ = run_main_path(
+        quads, cfg, forcing)
     launches += other
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     r_int, p_int, m_int, _ = results[label]
@@ -2524,6 +2710,14 @@ def main() -> int:
     phase_build()
     worst = phase_kernel_vs_plain()
     worst = max(worst, phase_wide_shapes())
+    bp_record = {
+        "name": "broadphase", "route": "cuda",
+        "source": "subzero_tpu_torch/csrc/broadphase.cu",
+        "replaces": "none: XLA in subzero_tpu/dynamics/broadphase.py:"
+                    "neighbor_candidates",
+        "launches": 0, "max_abs_err": 0.0, "library_ms": None,
+    }
+    phase_broadphase(bp_record)
     built = main_path_runs()
     pallas_record = {
         "name": "clip_pallas", "route": "cuda",
@@ -2539,10 +2733,10 @@ def main() -> int:
         "replaces": "subzero_tpu/geometry/clip_integral.py:clip_integral_bm",
         "library_ms": None,
     }
-    runs, results = phase_main_path(record, built)
+    runs, results = phase_main_path(record, built, bp_record)
     record["max_abs_err"] = max(record["max_abs_err"], worst)
     phase_sim_parity()
-    phase_big_run(record)
+    phase_big_run(record, bp_record)
     phase_remainder(runs, results, record)
     phase_spatial(results, record)
     phase_campaign(record)
@@ -2552,7 +2746,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (record, pallas_record)]}))
+                                  for r in (record, pallas_record,
+                                            bp_record)]}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

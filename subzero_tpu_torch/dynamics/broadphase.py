@@ -2,12 +2,15 @@
 
 Port of ``subzero_tpu/dynamics/broadphase.py``: the reference's O(N^2) test
 ``dist(centroids) < rmax_i + rmax_j`` (``floe_interactions_all.m:101-119``)
-as one masked [N, N] tensor op, then a top-K extraction into a
-fixed-degree [N, K] neighbour table.  Periodicity by the minimum-image
-convention: each candidate carries the image shift that brings floe j
-closest to floe i.  ``neighbor_candidates_cells`` is the cell-list broad
-phase: the same table from the floes of each floe's 3x3 cell
-neighbourhood, O(N * 9 * cell_cap) instead of O(N^2).
+and a top-K extraction into a fixed-degree [N, K] neighbour table.
+Periodicity by the minimum-image convention: each candidate carries the
+image shift that brings floe j closest to floe i.  ``neighbor_candidates``
+launches the Hopper kernel of ``csrc/broadphase.cu`` for CUDA tensors and
+runs ``neighbor_candidates_plain`` (one masked [N, N] tensor op and K
+masked max passes) for CPU tensors; the two give the same table, bit for
+bit.  ``neighbor_candidates_cells`` is the cell-list broad phase: the same
+table from the floes of each floe's 3x3 cell neighbourhood,
+O(N * 9 * cell_cap) instead of O(N^2).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..kernels.broadphase import neighbor_table_cuda
 
 
 def _top_k_argmax(key: torch.Tensor, k_max: int):
@@ -69,7 +74,32 @@ def neighbor_candidates(
     src: tuple | None = None,
     n_skip_rows: int = 0,
 ) -> NeighborTable:
-    """Bounding-circle broad phase -> top-K neighbour table.
+    """Bounding-circle broad phase -> top-K neighbour table: the kernel on
+    CUDA tensors (``kernels/broadphase.py:neighbor_table_cuda``), the plain
+    version on CPU tensors (``neighbor_candidates_plain``, which documents
+    the arguments)."""
+    args = (x, y, rmax, alive, k_max, periodic, lx, ly, src, n_skip_rows)
+    if x.device.type == "cuda":
+        return NeighborTable(*neighbor_table_cuda(*args))
+    if x.device.type == "cpu":
+        return neighbor_candidates_plain(*args)
+    raise ValueError(f"no broad phase for device {x.device}")
+
+
+def neighbor_candidates_plain(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    rmax: torch.Tensor,
+    alive: torch.Tensor,
+    k_max: int,
+    periodic: bool,
+    lx: float,
+    ly: float,
+    src: tuple | None = None,
+    n_skip_rows: int = 0,
+) -> NeighborTable:
+    """Bounding-circle broad phase -> top-K neighbour table, in plain
+    PyTorch.
 
     Rows [0, n_skip_rows) (immovable boundary/topography floes) get no
     candidates; floe-vs-boundary pairs still appear in the moving floe's
