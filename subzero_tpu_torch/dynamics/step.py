@@ -33,6 +33,8 @@ class StepAux(NamedTuple):
     """Per-step auxiliary outputs (diagnostics + lifecycle flags)."""
 
     n_collisions: torch.Tensor     # [] int32 collision count
+    n_coast_pairs: torch.Tensor    # [] int32 floe-vs-coast pairs carrying
+                                   # force (neighbour slot < n_boundary)
     merge_i: torch.Tensor          # [N, K] floe i to be absorbed into nbr k
     merge_j: torch.Tensor          # [N, K] nbr k to be absorbed into floe i
     absorb_boundary: torch.Tensor  # [N] floe >75% outside domain
@@ -227,17 +229,21 @@ def physics_step(
         i32 = torch.int32
         if cfg.n_boundary > 0:
             vs_topo = nbr.idx < cfg.n_boundary
+            n_coast = torch.sum(f_valid & vs_topo)
             n_collisions = (
                 torch.sum(f_valid & ~vs_topo) // 2
-                + torch.sum(f_valid & vs_topo)
+                + n_coast
                 + torch.sum(b_valid)
             ).to(i32)
+            n_coast = n_coast.to(i32)
         else:
             n_collisions = (torch.sum(f_valid) // 2
                             + torch.sum(b_valid)).to(i32)
+            n_coast = torch.zeros((), dtype=i32, device=dev)
 
         aux = StepAux(
             n_collisions=n_collisions,
+            n_coast_pairs=n_coast,
             merge_i=pc.merge_i,
             merge_j=pc.merge_j,
             absorb_boundary=bc.absorb,

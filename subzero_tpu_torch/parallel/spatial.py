@@ -369,6 +369,9 @@ def _step_aux(mesh: Mesh, state: FloeState, p: dict, overflow):
         nbr.demand.to(i64), flag if mesh.rank == 0 else flag * 0, flag]))
     aux = StepAux(
         n_collisions=(sums[0] // 2 + sums[1]).to(torch.int32),
+        # the slab and tile steps give slots < n_boundary no coastline rule
+        n_coast_pairs=torch.zeros((), dtype=torch.int32,
+                                  device=sums.device),
         merge_i=pc.merge_i, merge_j=pc.merge_j,
         absorb_boundary=p["b_absorb"],
         killed=p["alive_before"] & ~state.alive,

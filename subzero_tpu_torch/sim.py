@@ -43,9 +43,13 @@ from .diagnostics import (
 from .dynamics.step import StepAux, domain_polygon, physics_step
 from .forcing import Forcing, gyre_ocean
 from .state import FloeState
-from .trace import Table, recording, span, sync
+from .trace import Table, count, recording, span, sync
 
 __all__ = ["Simulation", "out_of_box_sim", "chunk_merge_pairs"]
+
+# where the chunk summary's per-step export slots start (after its 15
+# scalars, see Simulation._run_chunk)
+_EXPORT_SLOTS = 15
 
 
 class ChunkAux:
@@ -268,7 +272,7 @@ class Simulation:
             from .parallel import gather_state, shard_state
 
             state = shard_state(state, mesh)
-        auxes, exported = [], []
+        auxes, exported, n_exported = [], [], []
         for i in range(n):
             if mesh is None:
                 st2, aux = physics_step(
@@ -287,13 +291,17 @@ class Simulation:
             # the host accumulates the slots in float64
             exp_i = torch.sum(torch.where(
                 aux.exported, state.mass, torch.zeros_like(state.mass)))
+            nexp_i = torch.sum(aux.exported)
             if mesh is not None:
-                # this rank's kills: one sum over the mesh for both
+                # this rank's kills: one sum over the mesh for all three
                 both = mesh.psum(torch.cat([grid.reshape(-1).to(sdt),
-                                            exp_i[None].to(sdt)]))
-                grid, exp_i = both[:-1].reshape(grid.shape), both[-1]
+                                            exp_i[None].to(sdt),
+                                            nexp_i[None].to(sdt)]))
+                grid = both[:-2].reshape(grid.shape)
+                exp_i, nexp_i = both[-2], both[-1]
             dissolved = dissolved + grid
             exported.append(exp_i)
+            n_exported.append(nexp_i)
             if cfg.processes.advect_dissolved:
                 from .dissolved import advect_dissolved
 
@@ -337,14 +345,18 @@ class Simulation:
             # auto-sizing in _maybe_shrink_pools)
             torch.max(torch.where(state.alive, state.nv,
                                   torch.zeros_like(state.nv))),
+            # the chunk's floe-vs-coast force pairs and exported floes
+            # (trace counts contact.coast_pairs, step.exported_floes)
+            chunk.n_coast_pairs.sum(),
+            torch.stack(n_exported).sum(),
         )])
         if mesh is not None:
             # the flags read from this rank's slab; every other entry is
             # global already
             summary = mesh.pmax(summary)
-        # per-step export slots ride the same single-fetch vector; the host
-        # sums them in float64 (s[1] keeps the chunk total in the state
-        # dtype for quick checks)
+        # per-step export slots ride the same single-fetch vector, last
+        # (from _EXPORT_SLOTS); the host sums them in float64 (s[1] keeps
+        # the chunk total in the state dtype for quick checks)
         summary = torch.cat([summary, exp])
         return state, dissolved, vd_tend, eul_acc, chunk, summary
 
@@ -656,13 +668,16 @@ class Simulation:
                     # inputs so no degraded step survives
                     if not self._grow_pools(s):
                         break
+            count("contact.coast_pairs", int(s[13]))
+            count("step.exported_floes", int(s[14]))
             self.state, dissolved, vd_tend, eul_acc = st2, dis2, vd2, eul2
             self.step_idx += n
             done += n
             merge_any = bool(s[0])
-            # f64 host sum of the per-step export slots (s[13:]); s[1] is
-            # the chunk total in the state dtype, kept as a sanity value
-            exported = float(np.sum(s[13:].astype(np.float64)))
+            # f64 host sum of the per-step export slots; s[1] is the
+            # chunk total in the state dtype, kept as a sanity value
+            exported = float(np.sum(
+                s[_EXPORT_SLOTS:].astype(np.float64)))
             n_rov = int(s[2])
             need = int(s[3])
             ncol = int(s[4])

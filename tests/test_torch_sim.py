@@ -407,7 +407,8 @@ def SimpleStep(merge_i, nbr, n, k):
     zf = torch.zeros((n, k), dtype=torch.float64)
     zb = torch.zeros((n,), dtype=torch.bool)
     return StepAux(
-        n_collisions=torch.tensor(0), merge_i=torch.from_numpy(merge_i),
+        n_collisions=torch.tensor(0), n_coast_pairs=torch.tensor(0),
+        merge_i=torch.from_numpy(merge_i),
         merge_j=torch.zeros((n, k), dtype=torch.bool), absorb_boundary=zb,
         killed=zb, exported=zb, nbr_overflow=torch.tensor(False),
         nbr_demand=torch.tensor(0), overlap_area=torch.zeros(n),
