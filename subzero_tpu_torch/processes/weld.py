@@ -14,6 +14,7 @@ import numpy as np
 
 from ..config import SimConfig
 from ..native import poly_boolean, poly_area
+from ..trace import count
 from .host import HostView, StateEdit
 from .fuse import fuse_floes
 
@@ -62,31 +63,48 @@ def weld_pass(
     for k in range(len(entries)):
         bins.setdefault((int(bx[k]), int(by[k])), []).append(k)
 
+    # Per-entry columns for the row tests.  Every entry's slot is alive
+    # (``live``) and the view does not change during the pass.  The area
+    # test is the scalar expression, once an entry: numpy may promote a
+    # Python float against an array otherwise than against a scalar.  The
+    # distance tests are the pair loop's arithmetic on the same arrays,
+    # element by element.
+    area, rmax = view.area, view.rmax
+    slot = np.array([i for i, _ in entries], dtype=np.int64)
+    ghost = np.array([s != (0.0, 0.0) for _, s in entries])
+    small_e = np.array([not area[i] >= max_weld_area for i, _ in entries],
+                       dtype=bool)
+    rmax_e = rmax[slot]
+
     def spoly(k):
         i, s = entries[k]
         return view.poly(i) + np.asarray(s)
 
+    n_pairs = 0
+    n_clips = 0
     fused: set[int] = set()
     for members in bins.values():
+        mem = np.asarray(members)
+        m_slot, m_ghost = slot[mem], ghost[mem]
+        m_ex, m_ey, m_rmax = ex[mem], ey[mem], rmax_e[mem]
+        m_ok = small_e[mem]
         for ai, ka in enumerate(members):
-            i, s_i = entries[ka]
-            if i in fused or not view.alive[i]:
+            i = entries[ka][0]
+            if i in fused or area[i] >= max_weld_area:
                 continue
-            if view.area[i] >= max_weld_area:
-                continue
-            # candidates: later members within bounding circles (weld.m:96-99)
-            cands = []
-            for kb in members[ai + 1:]:
-                j, s_j = entries[kb]
-                if j == i or j in fused or not view.alive[j]:
-                    continue
-                if s_i != (0.0, 0.0) and s_j != (0.0, 0.0):
-                    continue        # ghost-ghost pairs: handled via parents
-                if view.area[j] >= max_weld_area:
-                    continue
-                d = np.hypot(ex[ka] - ex[kb], ey[ka] - ey[kb])
-                if 1.0 < d < view.rmax[i] + view.rmax[j]:
-                    cands.append(kb)
+            # candidates: later members within bounding circles
+            # (weld.m:96-99).  At 1x1 bins a floe's own ghost shares its
+            # bin, 2 lx or 2 ly away: "!= i" keeps it out, as the pair loop
+            # did, even for a floe whose rmax passes lx.
+            rest = slice(ai + 1, None)
+            n_pairs += len(members) - ai - 1
+            d = np.hypot(ex[ka] - m_ex[rest], ey[ka] - m_ey[rest])
+            mask = m_ok[rest] & (m_slot[rest] != i) & (1.0 < d) \
+                & (d < rmax[i] + m_rmax[rest])
+            if m_ghost[ai]:
+                mask &= ~m_ghost[rest]  # ghost-ghost pairs: via parents
+            cands = [members[t] for t in np.flatnonzero(mask) + ai + 1
+                     if m_slot[t] not in fused]
             if not cands:
                 continue
             # overlap areas + weld probability (weld.m:102-116)
@@ -94,10 +112,11 @@ def weld_pass(
             best_p = None
             for kb in cands:
                 inter = poly_boolean(spoly(ka), spoly(kb), "int")
+                n_clips += 1
                 a_ov = sum(max(poly_area(c), 0.0) for c in inter)
                 if a_ov <= 0:
                     continue
-                weldp = cfg.processes.weld_coeff * a_ov / view.area[i]
+                weldp = cfg.processes.weld_coeff * a_ov / area[i]
                 if weldp > rng.random():
                     if best_p is None or weldp > best_p:
                         best_p = weldp
@@ -106,24 +125,27 @@ def weld_pass(
                 continue
             j, s_j = entries[best]
             uni = poly_boolean(spoly(ka), spoly(best), "uni")
+            n_clips += 1
             a_uni = sum(max(poly_area(c), 0.0) for c in uni)
             if not (cfg.processes.fuse_min_area < a_uni < a_total / 5):
                 continue
 
             # chain absorption: neighbors covered >40% by the union
-            # (weld.m:134-152)
+            # (weld.m:134-152); "not >" keeps a NaN distance a candidate
+            n_pairs += len(members)
+            d = np.hypot(ex[ka] - m_ex, ey[ka] - m_ey)
+            near = ~(d > rmax[i] + rmax[j] + m_rmax)
             absorb = []
             overrides = {}
-            for kc in members:
-                k2, s_k = entries[kc]
-                if k2 in (i, j) or k2 in fused or not view.alive[k2]:
-                    continue
-                d = np.hypot(ex[ka] - ex[kc], ey[ka] - ey[kc])
-                if d > view.rmax[i] + view.rmax[j] + view.rmax[k2]:
+            for t in np.flatnonzero(near):
+                kc = members[t]
+                k2 = entries[kc][0]
+                if k2 in (i, j) or k2 in fused:
                     continue
                 inter = poly_boolean(uni, spoly(kc), "int")
+                n_clips += 1
                 a_ov = sum(max(poly_area(c), 0.0) for c in inter)
-                if a_ov / view.area[k2] > 0.4 and k2 not in absorb:
+                if a_ov / area[k2] > 0.4 and k2 not in absorb:
                     absorb.append(k2)
                     overrides[k2] = spoly(kc)
             # fuse in floe i's (entry ka's) frame
@@ -133,6 +155,9 @@ def weld_pass(
                              poly_override=overrides)
             edit.merge(sub)
             fused |= {i, j, *absorb}
+    # the pairs the row tests covered, and the clips they led to
+    count("weld.pairs", n_pairs)
+    count("weld.clips", n_clips)
     return edit
 
 
