@@ -1489,11 +1489,15 @@ def compare_edits(ea, eb, where):
 
 def copy_run_state(dst, src):
     """Set the Simulation ``dst`` (on its own device) to ``src``'s run
-    state: config, floe state, step, dissolved grid and tendency, AVERAGE
-    accumulator, lifecycle RNG and ledgers, pool-demand window."""
+    state: config, floe state, step, dissolved grid, lifecycle RNG and
+    ledgers, and every name of the driver's run state
+    (``sim.run_state_defaults``), tensors moved to ``dst``'s device."""
+    import copy
+
     import torch
 
     from subzero_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from subzero_tpu_torch.sim import run_state_defaults
 
     dev = dst.state.device
     dst.cfg = src.cfg
@@ -1508,17 +1512,19 @@ def copy_run_state(dst, src):
                                      dtype=str(src.state.x.dtype)[6:])
     dst._chunk_frozen = True
     for k in ("amax", "exported_mass", "last_birth_nv"):
-        setattr(dst.lifecycle, k, getattr(src.lifecycle, k, 0))
+        setattr(dst.lifecycle, k, getattr(src.lifecycle, k))
     dst.lifecycle.rng.bit_generator.state = \
         src.lifecycle.rng.bit_generator.state
-    dst._demand_win = list(getattr(src, "_demand_win", []))
-    dst._aux_cap = getattr(src, "_aux_cap", 512)
-    dst._eul_n = getattr(src, "_eul_n", 0)
-    acc = getattr(src, "_eul_acc", None)
-    dst._eul_acc = None if acc is None else type(acc)(
-        *(t.to(dev) for t in acc))
-    tend = getattr(src, "_vd_tend", None)
-    dst._vd_tend = None if tend is None else tend.to(dev)
+
+    def moved(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dev)
+        if hasattr(v, "_asdict"):           # the AVERAGE accumulator
+            return type(v)(*(t.to(dev) for t in v))
+        return copy.deepcopy(v)
+
+    for k in run_state_defaults():
+        setattr(dst, k, moved(getattr(src, k)))
     torch.cuda.synchronize()
 
 
@@ -1801,7 +1807,8 @@ def phase_big_run(kernel_record, bp_record):
 
     def watched(self, s):
         grew = orig(self, s)
-        if not grew and (s[2] or s[8] or s[10]):
+        if not grew and (s.region_overflow or s.nbr_overflow
+                         or s.pair_pool_overflow):
             overflowed.append(self.step_idx)   # committed with an overflow
         return grew
 

@@ -174,8 +174,8 @@ def _summarize(name: str, sim, t_wall: float, camp: Campaign,
         f"({rate:.2f} steps/s, {device_label(sim)})",
         f"- live floes: {int(alive.sum())}",
         f"- region-overflow steps: "
-        f"{getattr(sim, 'region_overflow_steps', 0)} "
-        f"(peak pool demand {getattr(sim, 'region_pool_need_max', 0)} "
+        f"{sim.region_overflow_steps} "
+        f"(peak pool demand {sim.region_pool_need_max} "
         "pair slots)",
     ]
     if camp.contact_impl:

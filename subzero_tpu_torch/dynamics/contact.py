@@ -338,7 +338,7 @@ def _reclip_flip(rs, vi_m: torch.Tensor, vj_m: torch.Tensor,
     return rs.valid & (toggles % 2 == 1)
 
 
-def _compact(flags: torch.Tensor, m: int):
+def compact(flags: torch.Tensor, m: int):
     """Order-preserving compaction of the set slots of ``flags [P]`` into
     ``m`` pool slots (cumsum + scatter).
 
@@ -428,7 +428,7 @@ def _blend_regions_compact(
     needs = n_cross >= 4                             # [P]
     if pair_ok is not None:
         needs = needs & pair_ok
-    sel, n_need, need, sel_g = _compact(needs, m)
+    sel, n_need, need, sel_g = compact(needs, m)
 
     vi_m, vj_m, kin, ff_m, amin_m, ov_gate_m, wall = gather_pair(sel_g)
     reclip = cfg.contact.normal_dir == "reclip"
@@ -595,7 +595,7 @@ def contact_forces(
                   & (bx0[:, None] <= jx1 + eps) & (jx0 <= bx1[:, None] + eps)
                   & (by0[:, None] <= jy1 + eps) & (jy0 <= by1[:, None] + eps))
         m2 = min(p, max(256, math.ceil(p * cfg.contact.pair_pool_frac)))
-        sel, n_act, slot_ok, sel_g = _compact(active.reshape(p), m2)
+        sel, n_act, slot_ok, sel_g = compact(active.reshape(p), m2)
 
         vi_m, vj_m, kin_m, ff_m, amin_m, mok_m, _ = gather_pair(sel_g)
         st = _clip(overlap_fn, vi_m, vj_m)

@@ -81,7 +81,7 @@ class HostView:
         return cm()
 
 
-def _pack_view(state: FloeState) -> torch.Tensor:
+def pack_view(state: FloeState) -> torch.Tensor:
     """Every field the host passes need as ONE [N, F] tensor in the state
     dtype, so the view costs a single device->host copy.  All fields are
     exactly representable in the state dtype (alive/nv are tiny ints)."""
@@ -106,9 +106,9 @@ def view_width(max_verts: int) -> int:
 
 
 def unpack_view(packed: np.ndarray, n: int) -> HostView:
-    """Rebuild a HostView from the packed [N, W] host array (the fetch may
-    have ridden a larger combined boundary fetch — sim.run packs view +
-    aux + merge tables into ONE device->host copy)."""
+    """Rebuild a HostView from the packed [N, W] host array (the view's
+    columns of ``chunk_io.fetch_boundary``'s one copy, or of
+    :func:`extract_view`'s)."""
     ns = len(SCALARS)
     alive = packed[:, 0] != 0.0
     nv = packed[:, 1].astype(np.int32)
@@ -127,7 +127,7 @@ def unpack_view(packed: np.ndarray, n: int) -> HostView:
 
 
 def extract_view(state: FloeState, cfg: SimConfig) -> HostView:
-    return unpack_view(_pack_view(state).cpu().numpy(),  # ONE copy
+    return unpack_view(pack_view(state).cpu().numpy(),  # ONE copy
                        state.n)
 
 

@@ -122,6 +122,9 @@ class Lifecycle:
         self.shadow_ledger = False
         self.ledger_drift = 0.0
         self.ledger_drift_max = 0.0
+        # the widest birth of the current boundary (vertices): the floor
+        # of the driver's windowed rung shrink, which consumes it
+        self.last_birth_nv = 0
 
     @property
     def pass_times(self) -> Table:
@@ -306,8 +309,7 @@ class Lifecycle:
                 need_v = max(need_v, min(len(np.asarray(f.poly)), vfid))
             for poly, _ in edit.reshapes.values():
                 need_v = max(need_v, min(len(np.asarray(poly)), vfid))
-            self.last_birth_nv = max(
-                getattr(self, "last_birth_nv", 0), need_v)
+            self.last_birth_nv = max(self.last_birth_nv, need_v)
             if need_v > state.v_cap and self.grow_verts_fn is not None:
                 state = self.grow_verts_fn(state, need_v)
                 cfg = self.cfg  # the hook replaces the shared config

@@ -12,7 +12,8 @@ checkpoints) happens only at chunk boundaries.
 
 A step's only host sync is the one ``physics_step`` already has (the
 thin-floe test of the trajectory update); the chunk adds one per chunk for
-the AVERAGE window and one for the summary.  Nothing here writes into a
+the AVERAGE window and one for the summary.  What crosses to the host, and
+how it is packed, is ``chunk_io.py``'s.  Nothing here writes into a
 tensor it was given, so an overflowed chunk re-runs from its untouched
 input state.
 
@@ -40,35 +41,35 @@ from .config import SimConfig
 from .diagnostics import (
     EulerianData, cell_window, dissolved_mass_grid, eulerian_data, total_mass,
 )
-from .dynamics.step import StepAux, domain_polygon, physics_step
+from .chunk_io import (
+    ChunkAux, Summary, chunk_merge_pairs, fetch_boundary, gather_chunk,
+    read_summary, summary_vector,
+)
+from .dynamics.step import domain_polygon, physics_step
 from .forcing import Forcing, gyre_ocean
 from .state import FloeState
 from .trace import Table, count, recording, span, sync
 
 __all__ = ["Simulation", "out_of_box_sim", "chunk_merge_pairs"]
 
-# where the chunk summary's per-step export slots start (after its 15
-# scalars, see Simulation._run_chunk)
-_EXPORT_SLOTS = 15
 
-
-class ChunkAux:
-    """The StepAux of every step of one chunk.  Field ``f`` reads as the
-    ``[c, ...]`` stack over the chunk's steps (built on first access, like
-    the JAX scan's stacked aux); ``last`` is the last step's StepAux."""
-
-    def __init__(self, steps: list):
-        self._steps = steps
-        self._stacked = {}
-        self.last = steps[-1]
-
-    def __getattr__(self, name):
-        if name.startswith("_") or name not in StepAux._fields:
-            raise AttributeError(name)
-        if name not in self._stacked:
-            self._stacked[name] = torch.stack(
-                [getattr(a, name) for a in self._steps])
-        return self._stacked[name]
+def run_state_defaults() -> dict:
+    """The driver's run state with its value before the first chunk: what
+    a run carries from chunk to chunk besides the dataclass fields and the
+    lifecycle.  A rebuild keeps it; a copy of a run copies every name."""
+    return {
+        "_verts_fit": False,       # the vertex rung fitted (_fit_verts)
+        "_aux_cap": 512,           # the boundary fetch's contact-entry pool
+        "_demand_win": [],         # pool demand per chunk (shrink window)
+        "_vd_tend": None,          # dissolved-advection AB2 tendency
+        "_eul_acc": None,          # AVERAGE accumulator and its step count
+        "_eul_n": 0,
+        "_mass_series": None,      # the outputs' total-mass series
+        "_metrics": None,          # metrics_history
+        "_rov_warned": False,      # per-region pool overflow reported
+        "region_overflow_steps": 0,
+        "region_pool_need_max": 0,
+    }
 
 
 @dataclasses.dataclass
@@ -108,6 +109,23 @@ class Simulation:
     mesh: "object | None" = None
 
     def __post_init__(self):
+        """The first call declares the run state and the lifecycle; every
+        call, the first included, rebuilds from ``cfg`` and ``state``
+        (:meth:`_rebuild`), so a later call after ``sim.cfg = ...`` keeps
+        the run state."""
+        if "lifecycle" not in self.__dict__:
+            from .processes.lifecycle import Lifecycle
+
+            self.__dict__.update(run_state_defaults())
+            # lifecycle orchestrator (host-side topology surgery), one for
+            # the run: its RNG and ledgers carry across rebuilds
+            self.lifecycle = Lifecycle(self.cfg, None, seed=self.seed + 1)
+            self.lifecycle.grow_fn = self._grow_floes
+        self._rebuild()
+
+    def _rebuild(self) -> None:
+        """Build the step, domain and chunk from ``cfg`` and ``state``, and
+        bring the lifecycle's config-derived fields up to date."""
         if self.mesh is not None:
             from .parallel.distributed import Mesh
 
@@ -129,12 +147,7 @@ class Simulation:
                 self.cfg.capacity, active_verts=int(self.state.v_cap)))
         dev = self.state.device
         self._domain = domain_polygon(self.cfg, device=dev)
-        # Re-init after a post-hoc ``sim.cfg = sim.cfg.replace(...)``: keep
-        # the lifecycle's run state (RNG stream, exported-mass ledger).
-        old_lc = getattr(self, "lifecycle", None)
-        # lifecycle orchestrator (host-side topology surgery)
         from .forcing import thermo_params
-        from .processes.lifecycle import Lifecycle
 
         _, pack_h0 = thermo_params(
             self.cfg.numerics.dt, self.cfg.processes.n_pack,
@@ -143,49 +156,29 @@ class Simulation:
             rho_ice=self.cfg.physics.rho_ice,
             latent=self.cfg.physics.latent_heat,
         )
+        lc = self.lifecycle
+        lc.cfg = self.cfg
+        lc.domain_poly = domain_polygon(self.cfg, device="cpu").to(
+            torch.float64).numpy()[:4]
+        lc.pack_h0 = pack_h0 if self.heat_flux < 0 else 0.0
+        lc.pack_target = self.pack_target
+        lc.nx, lc.ny = self.nx_coarse, self.ny_coarse
         areas = self.state.area[self.state.alive].cpu().numpy()
-        amax = float(areas.max()) if len(areas) else None
-        self.lifecycle = Lifecycle(
-            self.cfg, domain_polygon(self.cfg, device="cpu").to(
-                torch.float64).numpy()[:4],
-            seed=self.seed + 1, amax=amax,
-            pack_h0=pack_h0 if self.heat_flux < 0 else 0.0,
-            pack_target=self.pack_target,
-            nx=self.nx_coarse, ny=self.ny_coarse,
-        )
-        if old_lc is not None:
-            self.lifecycle.rng = old_lc.rng
-            # birth vertex need of the current boundary (the rung-shrink
-            # floor) must survive a mid-boundary re-init (floe-pool growth
-            # recreates the Lifecycle before _maybe_shrink_pools runs)
-            self.lifecycle.last_birth_nv = getattr(
-                old_lc, "last_birth_nv", 0)
-            # keep accumulated pass timings across mid-run rebuilds (the
-            # same table: a rebuild inside Lifecycle.step records on)
-            self.lifecycle.pass_times = old_lc.pass_times
-            self.lifecycle.exported_mass = old_lc.exported_mass
-            self.lifecycle.shadow_ledger = old_lc.shadow_ledger
-            self.lifecycle.ledger_drift = old_lc.ledger_drift
-            self.lifecycle.ledger_drift_max = old_lc.ledger_drift_max
-            if old_lc.amax is not None and (
-                    self.lifecycle.amax is None
-                    or old_lc.amax > self.lifecycle.amax):
-                # the weld pyramid cap only ever grows (Subzero.m:321-323)
-                self.lifecycle.amax = old_lc.amax
-        self.lifecycle.grow_fn = self._grow_floes
+        if len(areas) and (lc.amax is None
+                           or float(areas.max()) > lc.amax):
+            # the weld pyramid cap only ever grows (Subzero.m:321-323)
+            lc.amax = float(areas.max())
         # growth only under verts_auto: a pinned active_verts with
         # verts_auto=False is an explicit static rung (births truncate
         # there, like a static max_verts=rung build)
-        self.lifecycle.grow_verts_fn = (
+        lc.grow_verts_fn = (
             self._grow_verts if self.cfg.capacity.verts_auto else None)
-        # A mid-run re-init (pool growth, floe-capacity growth) resets both
-        # _domain and the fresh lifecycle's domain_poly to the static cfg
-        # box; forget the wall cache and rebuild the moved domain now so
-        # the next chunk (including the re-run of an overflowed chunk)
-        # doesn't silently run against unmoved walls until the next
-        # wall_cadence change.
+        # The domain above is the static cfg box: forget the wall cache and
+        # rebuild the moved domain now so the next chunk (including the
+        # re-run of an overflowed chunk) doesn't silently run against
+        # unmoved walls until the next wall_cadence change.
         self._wall_now = None
-        if getattr(self, "wall_fn", None) is not None:
+        if self.wall_fn is not None:
             self._update_walls()
         # the forcing grids live on the state's device
         self.forcing = self.forcing.to(device=dev)
@@ -256,9 +249,9 @@ class Simulation:
         loop: dissolved/exported kill-mass ledgers, the dissolved-ice
         advection-diffusion (Advect_Dissolved_Ice.m), and the AVERAGE
         Eulerian accumulation (Subzero.m:304-314 — exact every-step
-        accumulation).  The returned ``summary`` is ONE small tensor, so the
-        host pays a single device->host copy per chunk.  The inputs are
-        never written.
+        accumulation).  The returned ``summary`` is ONE small tensor
+        (``chunk_io.summary_vector``), so the host pays a single
+        device->host copy per chunk.  The inputs are never written.
         """
         cfg = self.cfg
         mesh = self.mesh
@@ -322,45 +315,11 @@ class Simulation:
         if mesh is not None:
             state = gather_state(state, mesh)
         chunk = ChunkAux(auxes)
-        last = chunk.last
-        exp = torch.zeros((self._chunk,), dtype=sdt, device=dissolved.device)
-        exp[:n] = torch.stack(exported).to(sdt)
-        i32 = torch.int32
-        summary = torch.stack([t.to(sdt) for t in (
-            chunk.merge_i.any(),
-            exp.sum(),
-            chunk.region_overflow.to(i32).sum(),
-            chunk.region_pool_need.max(),
-            chunk.n_collisions.max(),
-            # lifecycle skip hints (Lifecycle.dues)
-            torch.any(state.alive & (
-                state.nv > cfg.processes.simplify_max_verts)),
-            torch.any(last.pair_valid) | torch.any(last.boundary_contact),
-            torch.any(last.overlap_area > 0),
-            chunk.nbr_overflow.any(),
-            chunk.nbr_demand.max(),
-            chunk.pair_pool_overflow.to(i32).sum(),
-            chunk.pair_pool_need.max(),
-            # max live vertex count (drives the two-way vertex-rung
-            # auto-sizing in _maybe_shrink_pools)
-            torch.max(torch.where(state.alive, state.nv,
-                                  torch.zeros_like(state.nv))),
-            # the chunk's floe-vs-coast force pairs and exported floes
-            # (trace counts contact.coast_pairs, step.exported_floes)
-            chunk.n_coast_pairs.sum(),
-            torch.stack(n_exported).sum(),
-        )])
-        if mesh is not None:
-            # the flags read from this rank's slab; every other entry is
-            # global already
-            summary = mesh.pmax(summary)
-        # per-step export slots ride the same single-fetch vector, last
-        # (from _EXPORT_SLOTS); the host sums them in float64 (s[1] keeps
-        # the chunk total in the state dtype for quick checks)
-        summary = torch.cat([summary, exp])
+        summary = summary_vector(chunk, state, exported, n_exported,
+                                 self._chunk, cfg, sdt, mesh)
         return state, dissolved, vd_tend, eul_acc, chunk, summary
 
-    def _grow_pools(self, s: np.ndarray) -> bool:
+    def _grow_pools(self, s: Summary) -> bool:
         """Auto-size fixed capacity pools from chunk telemetry
         (ContactConfig.region_pool_auto): on per-region pool overflow, grow
         region_pair_frac to the measured demand; on broad-phase candidate
@@ -374,15 +333,10 @@ class Simulation:
         if not self.cfg.contact.region_pool_auto:
             return False
         dc = dataclasses
-        n_rov = int(s[2])
-        need = int(s[3])
-        nbr_ovf = bool(s[8])
-        nbr_demand = int(s[9])
-        pp_ovf = int(s[10])
-        pp_need = int(s[11])
+        need, pp_need = s.region_pool_need, s.pair_pool_need
         grew = False
         cfg = self.cfg
-        if pp_ovf and cfg.contact.pair_pool \
+        if s.pair_pool_overflow and cfg.contact.pair_pool \
                 and cfg.contact.pair_pool_frac < 1.0:
             p_count = self.state.n * cfg.capacity.max_neighbors
             frac = cfg.contact.pair_pool_frac
@@ -396,7 +350,7 @@ class Simulation:
                 cfg = cfg.replace(contact=dc.replace(
                     cfg.contact, pair_pool_frac=new_frac))
                 grew = True
-        if n_rov and cfg.contact.region_pair_frac < 1.0:
+        if s.region_overflow and cfg.contact.region_pair_frac < 1.0:
             p_count = self.state.n * cfg.capacity.max_neighbors
             frac = cfg.contact.region_pair_frac
             new_frac = min(1.0, _pool_slots(int(need * 1.25) + 1)
@@ -409,27 +363,27 @@ class Simulation:
                 cfg = cfg.replace(contact=dc.replace(
                     cfg.contact, region_pair_frac=new_frac))
                 grew = True
-        if nbr_ovf:
+        if s.nbr_overflow:
             k = cfg.capacity.max_neighbors
-            new_k = min(_ladder_k(max(int(nbr_demand * 1.1) + 1, k + 1)),
+            new_k = min(_ladder_k(max(int(s.nbr_demand * 1.1) + 1, k + 1)),
                         self.state.n)
             if new_k > k:
                 print(f"[sim] step {self.step_idx}: broad-phase candidate "
-                      f"demand {nbr_demand} — growing max_neighbors "
+                      f"demand {s.nbr_demand} — growing max_neighbors "
                       f"{k} -> {new_k} and re-running the chunk")
                 cfg = cfg.replace(capacity=dc.replace(
                     cfg.capacity, max_neighbors=new_k))
                 grew = True
         if grew:
             self.cfg = cfg
-            self.__post_init__()   # rebuild; lifecycle RNG/ledger kept
+            self._rebuild()
         return grew
 
     # window (in chunks) over which pool demand maxima are taken before a
     # shrink; long enough that a periodic lifecycle spike stays in view
     _SHRINK_WINDOW = 64
 
-    def _maybe_shrink_pools(self, s: np.ndarray) -> None:
+    def _maybe_shrink_pools(self, s: Summary) -> None:
         """Two-way auto-sizing: when the windowed demand maxima sit far
         below the current pools, shrink them (growth ratcheted pools stay
         at their historical peak otherwise — the resumed Nares campaign
@@ -445,17 +399,15 @@ class Simulation:
         if not self.cfg.contact.region_pool_auto:
             return
         dc = dataclasses
-        win = getattr(self, "_demand_win", None)
-        if win is None:
-            win = self._demand_win = []
+        win = self._demand_win
         # fold in this boundary's birth vertex need: the chunk summaries
         # predate the lifecycle's births, so without it a window that fills
         # at this boundary could shrink the rung below a floe born moments
         # ago (silent geometry truncation, nv > v_cap)
-        birth_nv = getattr(self.lifecycle, "last_birth_nv", 0)
+        birth_nv = self.lifecycle.last_birth_nv
         self.lifecycle.last_birth_nv = 0
-        win.append((int(s[3]), int(s[9]), int(s[11]),
-                    max(int(s[12]), birth_nv)))
+        win.append((s.region_pool_need, s.nbr_demand, s.pair_pool_need,
+                    max(s.max_nv, birth_nv)))
         if len(win) < self._SHRINK_WINDOW:
             return
         need_max = max(w[0] for w in win)
@@ -511,7 +463,7 @@ class Simulation:
                   f"slots (windowed demand: nbr {nbr_max}, region "
                   f"{need_max})")
             self.cfg = cfg
-            self.__post_init__()
+            self._rebuild()
 
     def _grow_floes(self, state: FloeState, need: int) -> FloeState:
         """Grow the floe capacity to at least ``need`` slots (padding every
@@ -576,18 +528,20 @@ class Simulation:
             print(f"[sim] vertex rung fitted to population: "
                   f"{self.state.v_cap} -> {new_v} (max live nv {mx})")
             self.state = _resize_verts(self.state, new_v)
-            self.__post_init__()   # syncs cfg.active_verts
+            self._rebuild()   # syncs cfg.active_verts
 
     def _update_walls(self) -> None:
         """Moving walls (uniaxial case): rebuild the domain polygon only
         when the wall position actually changed (it moves every
         ``wall_cadence`` steps)."""
         lx, ly = self.wall_fn(self.step_idx)
-        if getattr(self, "_wall_now", None) == (lx, ly):
+        if self._wall_now == (lx, ly):
             return
         self._wall_now = (lx, ly)
+        from .geometry.polygon import pad_polygon
+
         dom_np = np.array([[-lx, -ly], [lx, -ly], [lx, ly], [-lx, ly]])
-        pad, _ = _pad_domain(dom_np)
+        pad, _ = pad_polygon(dom_np, 8)
         self._domain = torch.as_tensor(pad, dtype=self.state.x.dtype,
                                        device=self.state.device)
         self.lifecycle.domain_poly = dom_np
@@ -615,15 +569,14 @@ class Simulation:
         """:meth:`run`'s loop, inside the recording of ``phase_times``."""
         done = 0
         t0 = time.perf_counter()
-        if self.cfg.capacity.verts_auto and not getattr(
-                self, "_verts_fit", False):
+        if self.cfg.capacity.verts_auto and not self._verts_fit:
             self._verts_fit = True
             self._fit_verts()
         if self.cfg is not self._built_cfg:
-            # cfg was replaced after construction: rebuild; lifecycle
-            # RNG/ledger state is preserved across the re-init
-            self.__post_init__()
-        if not getattr(self, "_chunk_frozen", False):
+            # cfg was replaced after construction: rebuild (the run state
+            # and the lifecycle are kept)
+            self._rebuild()
+        if not self._chunk_frozen:
             # wall_fn / output_dir may be attached after construction:
             # re-derive the chunk once, before the first chunk
             self._chunk = self._pick_chunk()
@@ -631,13 +584,13 @@ class Simulation:
         dt_ = self.state.x.dtype
         dev = self.state.device
         dissolved = torch.as_tensor(self.dissolved, dtype=dt_, device=dev)
-        vd_tend = getattr(self, "_vd_tend", None)
+        vd_tend = self._vd_tend
         if self.cfg.processes.advect_dissolved:
             if vd_tend is None:
                 vd_tend = torch.zeros_like(dissolved)
         else:
             vd_tend = None
-        eul_acc = getattr(self, "_eul_acc", None)
+        eul_acc = self._eul_acc
         if self.cfg.processes.average:
             if eul_acc is None:
                 eul_acc = self._zero_eul()
@@ -660,7 +613,8 @@ class Simulation:
                     )
                     # ONE device->host copy per chunk
                     with sync("summary"):
-                        s = summary.cpu().numpy()
+                        vec = summary.cpu().numpy()
+                    s = read_summary(vec)
                     # a capacity pool overflowed: the step ran with
                     # degraded physics (aggregate-contact fallback /
                     # dropped candidate contacts) — the cfg was grown and
@@ -668,107 +622,35 @@ class Simulation:
                     # inputs so no degraded step survives
                     if not self._grow_pools(s):
                         break
-            count("contact.coast_pairs", int(s[13]))
-            count("step.exported_floes", int(s[14]))
+            count("contact.coast_pairs", s.coast_pairs)
+            count("step.exported_floes", s.exported_floes)
             self.state, dissolved, vd_tend, eul_acc = st2, dis2, vd2, eul2
             self.step_idx += n
             done += n
-            merge_any = bool(s[0])
-            # f64 host sum of the per-step export slots; s[1] is the
-            # chunk total in the state dtype, kept as a sanity value
-            exported = float(np.sum(
-                s[_EXPORT_SLOTS:].astype(np.float64)))
-            n_rov = int(s[2])
-            need = int(s[3])
-            ncol = int(s[4])
-            hints = {
-                "any_oversize": bool(s[5]),
-                "any_contact": bool(s[6]),
-                "any_pair_overlap": bool(s[7]),
-            }
             # device-side export kills (Nares below-ymin, out-of-domain,
             # boundary absorption) fold into the exported-mass ledger
-            if exported:
-                self.lifecycle.exported_mass += exported
+            self.lifecycle.exported_mass += s.exported_mass
             if eul_acc is not None:
-                self._eul_n = getattr(self, "_eul_n", 0) + n
+                self._eul_n += n
             # host-side lifecycle at the chunk boundary — only when due
-            if merge_any or self.lifecycle.any_due(self.step_idx, hints):
-                # ONE combined device->host copy for the whole boundary:
-                # view + last-step aux (+ the chunk's merge-pair pool when a
-                # merge was flagged)
-                from .processes.host import unpack_view, view_width
-
-                with span("aux_fetch"):
-                    # a mesh's aux as the global arrays: every rank
-                    # reaches this boundary (the summary is reduced over
-                    # the mesh, the lifecycle is shared)
-                    baux = auxes if self.mesh is None else _gather_chunk(
-                        auxes, self.mesh,
-                        ("merge_i", "nbr_idx") if merge_any else ())
-                    nn = self.state.n
-                    kk = self.cfg.capacity.max_neighbors
-                    w1 = view_width(self.state.v_cap)
-                    cap_a = getattr(self, "_aux_cap", 512)
-                    self._aux_cap = cap_a
-                    wa = -(-(8 * cap_a + 1) // nn)
-                    if merge_any:
-                        packed = _pack_boundary_merges(
-                            self.state, baux, dissolved, cap_a).cpu().numpy()
-                    else:
-                        packed = _pack_boundary(
-                            self.state, baux.last, dissolved,
-                            cap_a).cpu().numpy()
-                    view = unpack_view(packed[:, :w1], nn)
-                    bc_col = packed[:, w1]
-                    avals = packed[:, w1 + 1:w1 + 1 + wa].T.reshape(-1)
-                    a_count = int(avals[0])
-                    if a_count > cap_a:
-                        # contact-entry pool overflow: dense fallback this
-                        # boundary (one extra copy) and raise the cap
-                        while cap_a < a_count * 1.25:
-                            cap_a *= 2
-                        self._aux_cap = cap_a
-                        aux_last = _unpack_aux(
-                            _pack_aux_last(baux.last).cpu().numpy())
-                    else:
-                        aux_last = _unpack_aux_compact(
-                            avals[1:1 + 8 * cap_a], bc_col, nn, kk)
-                    w2c = 1 + wa
-                    nd = self.ny_coarse * self.nx_coarse
-                    wd = -(-nd // nn)
-                    dis_np = np.asarray(
-                        packed[:, w1 + w2c:w1 + w2c + wd].T.reshape(-1)[:nd]
-                        .reshape(self.ny_coarse, self.nx_coarse), np.float64)
-                with span("merge_fetch"):
-                    if merge_any:
-                        vals = packed[:, w1 + w2c + wd:].T.reshape(-1)
-                        cnt = int(vals[0])
-                        if cnt > _MERGE_POOL:
-                            # pool overflow (storm-scale merge burst): fall
-                            # back to the full chunk merge tables
-                            mk = _pack_merges(baux).cpu().numpy()
-                            merge_pairs = _merge_pairs_from(
-                                mk[..., 0] != 0,
-                                mk[..., 1].astype(np.int64), n)
-                        else:
-                            pool = vals[1:1 + 2 * cnt].astype(np.int64
-                                                              ).reshape(-1, 2)
-                            merge_pairs = list(dict.fromkeys(
-                                (int(i), int(j)) for i, j in pool))
-                    else:
-                        merge_pairs = []
+            if s.merge_any or self.lifecycle.any_due(self.step_idx,
+                                                     s.hints):
+                # ONE combined device->host copy for the whole boundary
+                b = fetch_boundary(self.state, auxes, dissolved,
+                                   self._aux_cap, s.merge_any, self.mesh)
+                self._aux_cap = b.aux_cap
                 with span("lifecycle"):
                     self.state, dis_np, changed = self.lifecycle.step(
-                        self.state, aux_last, self.step_idx, dis_np,
-                        merge_pairs=merge_pairs, hints=hints, view=view,
+                        self.state, b.aux, self.step_idx, b.dissolved,
+                        merge_pairs=b.merge_pairs, hints=s.hints,
+                        view=b.view,
                     )
                 with span("rebuild"):
                     if self.cfg is not self._built_cfg:
                         # the lifecycle grew the floe capacity or the
                         # vertex rung: rebuild (which rebalances a mesh's
                         # slabs with the new cfg itself)
-                        self.__post_init__()
+                        self._rebuild()
                     elif changed and self.mesh is not None:
                         self.state = self._reshard(self.state)
                 dissolved = torch.as_tensor(dis_np, dtype=dt_, device=dev)
@@ -776,17 +658,16 @@ class Simulation:
             # Surface per-region pool overflow: those steps fell back to
             # aggregate contacts (physics degradation — raise
             # ContactConfig.region_pair_frac if this keeps firing).
-            self.region_pool_need_max = max(
-                getattr(self, "region_pool_need_max", 0), need)
-            if n_rov:
-                self.region_overflow_steps = (
-                    getattr(self, "region_overflow_steps", 0) + n_rov)
-                if not getattr(self, "_rov_warned", False):
+            self.region_pool_need_max = max(self.region_pool_need_max,
+                                            s.region_pool_need)
+            if s.region_overflow:
+                self.region_overflow_steps += s.region_overflow
+                if not self._rov_warned:
                     self._rov_warned = True
                     print(
                         f"[sim] WARNING step {self.step_idx}: per-region "
-                        f"pool overflow — {n_rov} step(s) fell back to "
-                        "aggregate contacts (raise ContactConfig."
+                        f"pool overflow — {s.region_overflow} step(s) fell "
+                        "back to aggregate contacts (raise ContactConfig."
                         "region_pair_frac)"
                     )
             # shrink BEFORE any output snapshot: the saved demand window
@@ -801,9 +682,9 @@ class Simulation:
             if on_chunk is not None:
                 self.dissolved = dissolved.cpu().numpy()
                 on_chunk(self, auxes if self.mesh is None
-                         else _gather_chunk(auxes, self.mesh))
+                         else gather_chunk(auxes, self.mesh))
             if log_every and (self.step_idx % log_every == 0):
-                self.record_metrics(ncol)
+                self.record_metrics(s.n_collisions)
                 m = self.metrics_history()
                 rate = done / max(time.perf_counter() - t0, 1e-9)
                 print(
@@ -831,7 +712,7 @@ class Simulation:
             return eul_acc
         if self.mesh is not None and self.mesh.rank != 0:
             if self.cfg.processes.average and eul_acc is not None \
-                    and getattr(self, "_eul_n", 0) > 0:
+                    and self._eul_n > 0:
                 eul_acc = self._zero_eul()
                 self._eul_n = 0
                 self._eul_acc = None
@@ -839,7 +720,7 @@ class Simulation:
         out = Path(self.output_dir)
         snap = out / f"snap{self.step_idx:07d}"
         if (self.cfg.processes.average and eul_acc is not None
-                and getattr(self, "_eul_n", 0) > 0):
+                and self._eul_n > 0):
             # sorted keys, as the JAX driver writes them
             eul = {k: v.cpu().numpy() / self._eul_n
                    for k, v in sorted(eul_acc._asdict().items())}
@@ -853,7 +734,7 @@ class Simulation:
         np.savez_compressed(snap / "eulerian.npz", **eul)
         # total-mass series (Subzero.m:294-295); continue an existing
         # on-disk series across checkpoint resumes
-        series = getattr(self, "_mass_series", None)
+        series = self._mass_series
         if series is None:
             series = []
             prior = out / "mass_series.npy"
@@ -886,7 +767,7 @@ class Simulation:
     def metrics_history(self) -> dict:
         """Accumulated per-chunk series: step, wall time, collisions, live
         floe count, total mass."""
-        if not hasattr(self, "_metrics"):
+        if self._metrics is None:
             self._metrics = {
                 "step": [], "wall_s": [], "collisions": [],
                 "alive": [], "mass": [],
@@ -993,27 +874,24 @@ class Simulation:
                 "amax": self.lifecycle.amax,
             },
             "telemetry": {
-                "region_overflow_steps":
-                    getattr(self, "region_overflow_steps", 0),
-                "region_pool_need_max":
-                    getattr(self, "region_pool_need_max", 0),
+                "region_overflow_steps": self.region_overflow_steps,
+                "region_pool_need_max": self.region_pool_need_max,
                 # two-way auto-sizing window: persisted so a resumed run's
                 # shrink timing matches the straight run's
-                "demand_win": [list(map(int, w)) for w in
-                               getattr(self, "_demand_win", [])],
+                "demand_win": [list(map(int, w)) for w in self._demand_win],
             },
-            "metrics": getattr(self, "_metrics", None),
+            "metrics": self._metrics,
         }
         (path / "meta.json").write_text(json.dumps(meta, indent=1))
         np.save(path / "dissolved.npy", self.dissolved)
         # AVERAGE accumulator (partial output interval) + dissolved-advection
         # AB2 tendency
-        acc = getattr(self, "_eul_acc", None)
-        if acc is not None and getattr(self, "_eul_n", 0):
+        acc = self._eul_acc
+        if acc is not None and self._eul_n:
             np.savez_compressed(path / "eul_acc.npz", _eul_n=self._eul_n,
                                 **{k: v.cpu().numpy() for k, v in
                                    sorted(acc._asdict().items())})
-        tend = getattr(self, "_vd_tend", None)
+        tend = self._vd_tend
         if tend is not None:
             np.save(path / "vd_tend.npy", tend.cpu().numpy())
 
@@ -1117,23 +995,6 @@ _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
               torch.int32: np.int32, torch.bool: np.bool_}
 
 
-def _gather_chunk(chunk: ChunkAux, mesh, fields=StepAux._fields
-                  ) -> ChunkAux:
-    """A mesh chunk's aux as the global arrays: the last step whole and
-    the ``fields`` of every earlier step, each per-floe field gathered from
-    every rank's slab along the floe axis (scalars are global already).
-    Every rank calls it at the same point of the loop, so the gathers line
-    up."""
-    def gather(aux: StepAux, names) -> StepAux:
-        return aux._replace(**{
-            f: mesh.all_gather(getattr(aux, f)) for f in names
-            if getattr(aux, f).dim()})
-
-    steps = chunk._steps
-    return ChunkAux([gather(a, fields) for a in steps[:-1]]
-                    + [gather(steps[-1], StepAux._fields)])
-
-
 def _pack_state(state: FloeState) -> torch.Tensor:
     """All state fields flattened into ONE [N, F] tensor (single
     device->host copy for checkpoints)."""
@@ -1143,208 +1004,6 @@ def _pack_state(state: FloeState) -> torch.Tensor:
         getattr(state, f.name).to(dt).reshape(n, -1)
         for f in dataclasses.fields(state)
     ], dim=1)
-
-
-def _np(a) -> np.ndarray:
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _merge_pairs_from(mi: np.ndarray, nbr: np.ndarray, n: int
-                      ) -> "list[tuple[int, int]] | None":
-    mi = mi[:n]
-    nbr = nbr[:n]
-    if not mi.any():
-        return None
-    s_t, i_t, k_t = np.nonzero(mi)
-    return list(dict.fromkeys(
-        (int(i), int(nbr[s, i, k]))
-        for s, i, k in zip(s_t, i_t, k_t)))
-
-
-def chunk_merge_pairs(auxes, n: int) -> "list[tuple[int, int]] | None":
-    """(absorbee, partner) merge pairs OR'd across a whole chunk
-    (``auxes.merge_i`` / ``auxes.nbr_idx`` are [c, N, K]).
-
-    The reference fuses >55%-overlap pairs EVERY step
-    (floe_interactions_all.m:470-501); flags raised at any step of the chunk
-    must not be dropped just because the overlap cleared by the last step —
-    each flag is resolved against its own step's neighbor table."""
-    return _merge_pairs_from(_np(auxes.merge_i), _np(auxes.nbr_idx), n)
-
-
-def _cols(vals: torch.Tensor, nn: int) -> torch.Tensor:
-    """Flatten ``vals`` into ceil(len/nn) columns of an [nn, w] block
-    (column-major; host reads ``block.T.reshape(-1)[:len]``)."""
-    w = -(-vals.shape[0] // nn)
-    pad = torch.zeros((nn * w - vals.shape[0],), dtype=vals.dtype,
-                      device=vals.device)
-    return torch.cat([vals, pad]).reshape(w, nn).T
-
-
-def _compact_positions(flat: torch.Tensor, cap: int) -> torch.Tensor:
-    """[cap] flat indices of the first ``cap`` set entries of the bool
-    vector ``flat``, in order, -1 past the last.  The prefix count places
-    entry k at slot (number of set entries before it); entries past the
-    pool go to a dummy slot that is dropped."""
-    pos = torch.cumsum(flat.to(torch.int64), 0) - 1
-    tgt = torch.where(flat & (pos < cap), pos, torch.full_like(pos, cap))
-    sel = torch.full((cap + 1,), -1, dtype=torch.int64, device=flat.device)
-    sel[tgt] = torch.arange(flat.shape[0], device=flat.device)
-    return sel[:cap]
-
-
-def _pack_boundary(state: FloeState, last: StepAux, dissolved, aux_cap: int):
-    """View + compacted last-step aux + dissolved grid as ONE [N, W]
-    tensor: a lifecycle boundary costs a single device->host copy, and the
-    aux rides as a contact-entry pool instead of the dense [N, 7K+1]
-    table."""
-    from .processes.host import _pack_view
-
-    dt = state.x.dtype
-    aux_vals, count, bc = _pack_aux_compact(last, aux_cap)
-    return torch.cat(
-        [_pack_view(state), bc[:, None],
-         _cols(torch.cat([count[None].to(dt), aux_vals]), state.n),
-         _cols(dissolved.reshape(-1).to(dt), state.n)],
-        dim=1)
-
-
-# merge-pair pool capacity for the compact boundary fetch: merges are a
-# few per chunk in every reference case; the full [c, N, K, 2] tables are
-# fetched only when the pool overflows
-_MERGE_POOL = 256
-
-
-def _pack_boundary_merges(state: FloeState, auxes: ChunkAux, dissolved,
-                          aux_cap: int):
-    """View + compacted aux + dissolved + a device-compacted merge-pair
-    pool, ONE copy.
-
-    Layout: [N, W1 + W2 + W3] where the last W3 columns carry the
-    flattened (count, i_0, j_0, i_1, j_1, ...) pool padded to N*W3 and
-    written column-major (host reads ``packed[:, w1+w2:].T.reshape(-1)``).
-    Pool order equals np.nonzero's (step, floe, slot) lexicographic order,
-    so host-side first-occurrence dedup matches _merge_pairs_from exactly.
-    """
-    from .processes.host import _pack_view
-
-    mi = auxes.merge_i                          # [c, N, K] bool
-    c, nn, k = mi.shape
-    flat = mi.reshape(-1)
-    sel = _compact_positions(flat, _MERGE_POOL)
-    valid = sel >= 0
-    sel_c = torch.clamp(sel, min=0)
-    i_f = (sel_c // k) % nn
-    j_f = auxes.nbr_idx.reshape(-1)[sel_c].to(torch.int64)
-    count = torch.sum(flat.to(torch.int64))
-    none = torch.full_like(i_f, -1)
-    pool = torch.stack([torch.where(valid, i_f, none),
-                        torch.where(valid, j_f, none)], dim=1).reshape(-1)
-    dt = state.x.dtype
-    vals = torch.cat([count[None], pool]).to(dt)
-    aux_vals, a_count, bc = _pack_aux_compact(auxes.last, aux_cap)
-    return torch.cat(
-        [_pack_view(state), bc[:, None],
-         _cols(torch.cat([a_count[None].to(dt), aux_vals]), nn),
-         _cols(dissolved.reshape(-1).to(dt), nn),
-         _cols(vals, nn)], dim=1)
-
-
-def _pack_aux_compact(last: StepAux, cap: int):
-    """Last-step aux as a compacted contact-entry pool [cap, 8] + count.
-
-    Only slots with a valid contact or positive overlap matter to the
-    lifecycle (corner contact points, fracture deform info, ridge/raft
-    selection).  Dense fallback on overflow (count > cap) costs one extra
-    copy and is flagged so the driver can raise the cap."""
-    valid = last.pair_valid
-    over = last.pair_overlap
-    keep = valid | (over > 0)                       # [N, K]
-    flat = keep.reshape(-1)
-    sel = _compact_positions(flat, cap)
-    ok = sel >= 0
-    sel_c = torch.clamp(sel, min=0)
-    dt = last.pair_px.dtype
-
-    def g(a):
-        return a.reshape(-1)[sel_c].to(dt)
-
-    rows = torch.stack([
-        torch.where(ok, sel_c, torch.full_like(sel_c, -1)).to(dt),
-        g(last.pair_px), g(last.pair_py),
-        g(last.pair_fx), g(last.pair_fy),
-        g(last.pair_overlap),
-        g(last.nbr_idx),
-        g(last.pair_valid),
-    ], dim=1)                                       # [cap, 8]
-    count = torch.sum(flat.to(torch.int64))
-    bc = last.boundary_contact.to(dt)               # [N]
-    return rows.reshape(-1), count, bc
-
-
-def _unpack_aux_compact(vals: np.ndarray, bc: np.ndarray, n: int, k: int):
-    """Dense [N, K] aux tables from the compacted entries."""
-    from types import SimpleNamespace
-
-    rows = vals.reshape(-1, 8)
-    ok = rows[:, 0] >= 0
-    flat_idx = rows[ok, 0].astype(np.int64)
-    ii = flat_idx // k
-    kk_ = flat_idx % k
-
-    def dense(col, dtype=np.float64):
-        a = np.zeros((n, k), dtype)
-        a[ii, kk_] = rows[ok, col]
-        return a
-
-    return SimpleNamespace(
-        pair_valid=dense(7) != 0,
-        pair_px=dense(1), pair_py=dense(2),
-        pair_fx=dense(3), pair_fy=dense(4),
-        pair_overlap=dense(5),
-        nbr_idx=dense(6).astype(np.int32),
-        boundary_contact=bc != 0,
-    )
-
-
-def _pack_aux_last(last: StepAux) -> torch.Tensor:
-    """The lifecycle's last-step aux fields as ONE [N, K*7+1] tensor."""
-    dt = last.pair_px.dtype
-    main = torch.stack([
-        last.pair_valid.to(dt), last.pair_px, last.pair_py,
-        last.pair_fx, last.pair_fy, last.pair_overlap,
-        last.nbr_idx.to(dt),
-    ], dim=-1)                                        # [N, K, 7]
-    bc = last.boundary_contact.to(dt)[:, None]
-    return torch.cat([main.reshape(main.shape[0], -1), bc], dim=1)
-
-
-def _unpack_aux(packed: np.ndarray):
-    from types import SimpleNamespace
-
-    n = packed.shape[0]
-    k = (packed.shape[1] - 1) // 7
-    main = packed[:, :-1].reshape(n, k, 7)
-    return SimpleNamespace(
-        pair_valid=main[..., 0] != 0,
-        pair_px=main[..., 1], pair_py=main[..., 2],
-        pair_fx=main[..., 3], pair_fy=main[..., 4],
-        pair_overlap=main[..., 5],
-        nbr_idx=main[..., 6].astype(np.int32),
-        boundary_contact=packed[:, -1] != 0,
-    )
-
-
-def _pack_merges(auxes: ChunkAux) -> torch.Tensor:
-    """merge_i + nbr_idx over the whole chunk as ONE [c, N, K, 2] tensor."""
-    dt = auxes.last.pair_px.dtype
-    return torch.stack([auxes.merge_i.to(dt), auxes.nbr_idx.to(dt)], dim=-1)
-
-
-def _pad_domain(rect: np.ndarray, v_cap: int = 8):
-    from .geometry.polygon import pad_polygon
-
-    return pad_polygon(rect, v_cap)
 
 
 def _ladder_k(need: int) -> int:

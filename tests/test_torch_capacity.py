@@ -41,6 +41,7 @@ from subzero_tpu.processes.lifecycle import capacity_guard as j_guard
 from subzero_tpu.state import state_from_polygons
 
 import subzero_tpu_torch.sim as tsim
+from subzero_tpu_torch.chunk_io import Summary, read_summary
 from subzero_tpu_torch.convert import (
     forcing_from_numpy, state_from_numpy, state_to_numpy,
 )
@@ -233,10 +234,13 @@ def test_shrink_floor_covers_boundary_births_like_jax():
         sim._SHRINK_WINDOW = 1
     s = np.zeros(13)
     s[12] = 6                                   # the summary says nv <= 6
+    # the port's summary by name
+    ps_s = read_summary(np.zeros(len(Summary._fields) - 1))._replace(
+        max_nv=6)
     for birth, want in ((20, 24), (0, 8)):      # a boundary birth of 20
-        for sim in (js, ps):
+        for sim, summary in ((js, s), (ps, ps_s)):
             sim.lifecycle.last_birth_nv = birth
-            sim._maybe_shrink_pools(s)
+            sim._maybe_shrink_pools(summary)
             assert sim.lifecycle.last_birth_nv == 0
         assert ps.state.v_cap == js.state.v_cap == want
         assert_same(js, ps, f"birth {birth}")

@@ -54,6 +54,27 @@ def jax_numpy(obj) -> dict:
             for f in dataclasses.fields(obj)}
 
 
+def port_run_state(jsim) -> dict:
+    """The JAX driver's run state under every name the port's driver
+    declares (``sim.run_state_defaults``), as the port holds it: arrays as
+    CPU tensors, the AVERAGE accumulator as the port's EulerianData."""
+    import copy
+
+    from subzero_tpu_torch.diagnostics import EulerianData
+    from subzero_tpu_torch.sim import run_state_defaults
+
+    def port(v):
+        if hasattr(v, "_asdict"):
+            return EulerianData(**{k: port(a) for k, a in
+                                   v._asdict().items()})
+        if hasattr(v, "__array__"):
+            return torch.from_numpy(np.array(v))
+        return copy.deepcopy(v)
+
+    return {k: port(getattr(jsim, k, v))
+            for k, v in run_state_defaults().items()}
+
+
 def assert_states_equal(jstate, pstate):
     a, b = jax_numpy(jstate), state_to_numpy(pstate)
     assert a.keys() == b.keys()

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import subzero_tpu_torch.sim as simmod
+from subzero_tpu_torch.chunk_io import Summary, read_summary
 from subzero_tpu_torch.config import (
     CapacityConfig, DomainConfig, NumericsConfig, PhysicsConfig,
     ProcessConfig, SimConfig,
@@ -114,8 +115,8 @@ def test_exported_floes_count_a_floe_past_the_southern_wall(monkeypatch):
 
 
 def test_summary_keeps_its_entries_with_the_counts_inserted():
-    """The summary's first 13 entries, the two counts, then the per-step
-    export slots, each as the chunk's own outputs give it."""
+    """Every summary field, read by name from the chunk's one vector,
+    against the chunk's own outputs; then the per-step export slots."""
     sim = tiny_sim([COAST] + FLOES + [BELOW], n_boundary=1,
                    kill_below_ymin=True)
     sim.run(0)
@@ -124,26 +125,34 @@ def test_summary_keeps_its_entries_with_the_counts_inserted():
     st0 = sim.state
     state, _, _, _, chunk, summary = sim._run_chunk(
         st0, 0, n, dis, None, None, sim._domain)
-    s = summary.numpy()
-    assert len(s) == simmod._EXPORT_SLOTS + sim._chunk
+    s = read_summary(summary.numpy())
     last = chunk.last
-    want = [
-        chunk.merge_i.any(), 0.0, chunk.region_overflow.sum(),
-        chunk.region_pool_need.max(), chunk.n_collisions.max(),
-        torch.any(state.alive & (state.nv > sim.cfg.processes
-                                 .simplify_max_verts)),
-        torch.any(last.pair_valid) | torch.any(last.boundary_contact),
-        torch.any(last.overlap_area > 0), chunk.nbr_overflow.any(),
-        chunk.nbr_demand.max(), chunk.pair_pool_overflow.sum(),
-        chunk.pair_pool_need.max(),
-        torch.max(torch.where(state.alive, state.nv, 0)),
-        chunk.n_coast_pairs.sum(), chunk.exported.sum()]
-    got = list(s[:simmod._EXPORT_SLOTS])
-    exp_steps = [float(torch.where(a, m, 0.0).sum()) for a, m in zip(
-        chunk.exported, [st0.mass] * n)]
-    want[1] = sum(exp_steps)
-    assert got == pytest.approx([float(w) for w in want], rel=1e-12)
-    assert s[13] >= n and s[14] == 1
-    assert list(s[simmod._EXPORT_SLOTS:simmod._EXPORT_SLOTS + n]) == \
-        pytest.approx(exp_steps, rel=1e-12)
-    assert not s[simmod._EXPORT_SLOTS + n:].any()
+    exp_steps = [float(torch.where(a, st0.mass, 0.0).sum())
+                 for a in chunk.exported]
+    want = Summary(
+        merge_any=bool(chunk.merge_i.any()),
+        region_overflow=int(chunk.region_overflow.sum()),
+        region_pool_need=int(chunk.region_pool_need.max()),
+        n_collisions=int(chunk.n_collisions.max()),
+        any_oversize=bool(torch.any(state.alive & (
+            state.nv > sim.cfg.processes.simplify_max_verts))),
+        any_contact=bool(torch.any(last.pair_valid)
+                         | torch.any(last.boundary_contact)),
+        any_pair_overlap=bool(torch.any(last.overlap_area > 0)),
+        nbr_overflow=bool(chunk.nbr_overflow.any()),
+        nbr_demand=int(chunk.nbr_demand.max()),
+        pair_pool_overflow=int(chunk.pair_pool_overflow.sum()),
+        pair_pool_need=int(chunk.pair_pool_need.max()),
+        max_nv=int(torch.max(torch.where(state.alive, state.nv, 0))),
+        coast_pairs=int(chunk.n_coast_pairs.sum()),
+        exported_floes=int(chunk.exported.sum()),
+        export_slots=None)
+    for f in Summary._fields[:-1]:
+        got = getattr(s, f)
+        assert type(got) is type(getattr(want, f)), f
+        assert got == pytest.approx(getattr(want, f), rel=1e-12), f
+    assert s.coast_pairs >= n and s.exported_floes == 1
+    assert len(s.export_slots) == sim._chunk
+    assert list(s.export_slots[:n]) == pytest.approx(exp_steps, rel=1e-12)
+    assert not s.export_slots[n:].any()
+    assert s.exported_mass == pytest.approx(sum(exp_steps), rel=1e-12)

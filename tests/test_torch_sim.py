@@ -52,13 +52,15 @@ from subzero_tpu.sim import Simulation
 from subzero_tpu.state import state_from_polygons
 
 import subzero_tpu_torch.processes.lifecycle as tlc
+import subzero_tpu_torch.chunk_io as chunk_io
 import subzero_tpu_torch.sim as tsim
 import subzero_tpu_torch.validation as tval
+from subzero_tpu_torch.chunk_io import Summary, read_summary
 from subzero_tpu_torch.convert import (
     forcing_from_numpy, state_from_numpy, state_to_numpy,
 )
 from chip_smoke import compare_edits
-from test_torch_init import jax_numpy, port_cfg
+from test_torch_init import jax_numpy, port_cfg, port_run_state
 
 torch.set_num_threads(1)
 
@@ -117,16 +119,17 @@ def record_edits(monkeypatch):
 
 def resync(ps, js):
     """Set the port's simulation to the JAX one's state, config, dissolved
-    grid and lifecycle run state."""
+    grid, driver run state and lifecycle run state."""
     ps.cfg = port_cfg(js.cfg)
     ps.state = port_state(js.state)
     ps.dissolved = np.array(js.dissolved)
     ps.__post_init__()
     ps._chunk_frozen = True
+    for k, v in port_run_state(js).items():
+        setattr(ps, k, v)
     for k in ("amax", "exported_mass", "last_birth_nv"):
         setattr(ps.lifecycle, k, getattr(js.lifecycle, k, 0))
     ps.lifecycle.rng.bit_generator.state = js.lifecycle.rng.bit_generator.state
-    ps._demand_win = list(getattr(js, "_demand_win", []))
 
 
 # -- lockstep ----------------------------------------------------------------
@@ -223,8 +226,8 @@ def test_pool_two_way_autosizing_shrinks():
     ps.cfg = ps.cfg.replace(capacity=dataclasses.replace(
         ps.cfg.capacity, max_neighbors=64))
     ps.__post_init__()
-    s = np.zeros(13)
-    s[3], s[9], s[12] = 40, 6, 8
+    s = read_summary(np.zeros(len(Summary._fields) - 1))._replace(
+        region_pool_need=40, nbr_demand=6, max_nv=8)
     for _ in range(ps._SHRINK_WINDOW):
         ps._maybe_shrink_pools(s)
     assert 8 <= ps.cfg.capacity.max_neighbors < 64
@@ -374,30 +377,96 @@ def test_merge_pool_keeps_nonzero_order():
         merge_i[s, i, kk] = True
         nbr[s, i, kk] = j
     nbr[2, 2, 0] = 4        # a different floe in a step with no flag
-    want = tsim._merge_pairs_from(merge_i, nbr, chunk)
+    want = chunk_io._merge_pairs_from(merge_i, nbr, chunk)
     assert want == [(0, 2), (2, 3), (4, 0), (2, 1)]
-    aux = tsim.ChunkAux([SimpleStep(merge_i[s], nbr[s], n, k)
-                         for s in range(chunk)])
+    aux = chunk_io.ChunkAux([SimpleStep(merge_i[s], nbr[s], n, k)
+                             for s in range(chunk)])
     assert tsim.chunk_merge_pairs(aux, chunk) == want
-    st = port_state(state_from_polygons(
+    st = boundary_state(n)
+    dis = torch.zeros((2, 2), dtype=torch.float64)
+    packed = chunk_io.pack_boundary(st, aux, dis, 16, merges=True).numpy()
+    cols = chunk_io.boundary_columns(n, st.v_cap, 16, 4, merges=True)
+    assert int(packed[:, cols["merges"]].T.reshape(-1)[0]) == 5
+    got = chunk_io.fetch_boundary(st, aux, dis, 16, merges=True)
+    assert got.merge_pairs == want
+    assert tsim.chunk_merge_pairs(aux, 1) == [(0, 2)]
+
+
+def boundary_state(n):
+    """``n`` live triangles in float64, 3 km apart."""
+    return port_state(state_from_polygons(
         [np.array([[0, 0], [1e3, 0], [0, 1e3]], float) + 3e3 * j
          for j in range(n)], 0.5,
         SimConfig(capacity=CapacityConfig(max_floes=n, max_verts=8,
                                           n_mc_points=8, stress_window=4),
                   numerics=NumericsConfig(dtype="float64"))))
-    packed = tsim._pack_boundary_merges(
-        st, aux, torch.zeros((2, 2), dtype=torch.float64), 16).numpy()
-    from subzero_tpu_torch.processes.host import view_width
 
-    w1 = view_width(st.v_cap)
-    wa = -(-(8 * 16 + 1) // n)
-    wd = -(-4 // n)
-    vals = packed[:, w1 + 1 + wa + wd:].T.reshape(-1)
-    cnt = int(vals[0])
-    assert cnt == 5
-    pool = vals[1:1 + 2 * cnt].astype(np.int64).reshape(-1, 2)
-    assert list(dict.fromkeys((int(i), int(j)) for i, j in pool)) == want
-    assert tsim.chunk_merge_pairs(aux, 1) == [(0, 2)]
+
+@pytest.mark.parametrize("case", ["plain", "merges", "contact_overflow",
+                                  "merge_overflow"])
+def test_boundary_fetch_round_trip(case):
+    """The boundary fetch's view, last-step aux, dissolved grid and merge
+    pairs against the tensors they were packed from: with and without
+    merges, and each pool overflowing into its dense fallback."""
+    n, k, steps = 6, 3, 16
+    rng = np.random.default_rng(7)
+    st = boundary_state(n)
+    merge_i = np.zeros((steps, n, k), bool)
+    if case == "merges":
+        merge_i[rng.integers(0, steps, 5), rng.integers(0, n, 5),
+                rng.integers(0, k, 5)] = True
+    elif case == "merge_overflow":
+        merge_i[:] = True                     # 288 flags: past the pool
+    # the last step's contacts: entries outside the pool (no contact, no
+    # overlap) are zero, as only pooled entries come back
+    valid = rng.random((n, k)) < 0.4
+    valid[0, 0] = valid[-1, -1] = True        # the first and last slots
+    over = np.where(rng.random((n, k)) < 0.3, rng.random((n, k)), 0.0)
+    keep = valid | (over > 0)
+    nbr = rng.integers(0, n, (steps, n, k)).astype(np.int32)
+    nbr[-1, ~keep] = 0
+    steps_aux = [SimpleStep(merge_i[s], nbr[s], n, k) for s in range(steps)]
+    last = steps_aux[-1]._replace(
+        pair_valid=torch.from_numpy(valid),
+        pair_overlap=torch.from_numpy(over),
+        boundary_contact=torch.from_numpy(rng.random(n) < 0.5),
+        **{f: torch.from_numpy(np.where(keep, rng.normal(size=(n, k)), 0.0))
+           for f in ("pair_px", "pair_py", "pair_fx", "pair_fy")})
+    chunk = chunk_io.ChunkAux(steps_aux[:-1] + [last])
+    dis = torch.from_numpy(rng.random((3, 5)))
+    cap = 4 if case == "contact_overflow" else 16
+    assert (int(keep.sum()) > cap) == (case == "contact_overflow")
+    b = chunk_io.fetch_boundary(st, chunk, dis, cap,
+                                merges=bool(merge_i.any()))
+    # the view
+    assert np.array_equal(b.view.alive, st.alive.numpy())
+    assert np.array_equal(b.view.nv, st.nv.numpy())
+    for f in ("x", "y", "u", "mass", "area"):
+        assert np.array_equal(getattr(b.view, f), getattr(st, f).numpy()), f
+    assert np.array_equal(b.view.stress, st.stress.numpy())
+    world = st.verts_world().numpy()
+    for i in range(n):
+        assert np.array_equal(b.view.polys[i], world[i, :int(st.nv[i])])
+    # the aux
+    for f in ("pair_valid", "pair_px", "pair_py", "pair_fx", "pair_fy",
+              "pair_overlap", "nbr_idx", "boundary_contact"):
+        src = getattr(last, f).numpy()
+        got = getattr(b.aux, f)
+        assert got.shape == src.shape and np.array_equal(got, src), f
+    assert b.aux.nbr_idx.dtype == np.int32
+    assert b.aux.pair_valid.dtype == b.aux.boundary_contact.dtype == bool
+    if case == "contact_overflow":
+        assert b.aux_cap >= 1.25 * keep.sum() and b.aux_cap % cap == 0
+    else:
+        assert b.aux_cap == cap
+    # the dissolved grid
+    assert b.dissolved.dtype == np.float64
+    assert np.array_equal(b.dissolved, dis.numpy())
+    # the merge pairs, first occurrence first in (step, floe, slot) order
+    want = list(dict.fromkeys((int(i), int(nbr[s, i, kk])) for s, i, kk
+                              in zip(*np.nonzero(merge_i))))
+    assert b.merge_pairs == want
+    assert (len(want) > 0) == (case in ("merges", "merge_overflow"))
 
 
 def SimpleStep(merge_i, nbr, n, k):

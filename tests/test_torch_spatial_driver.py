@@ -114,7 +114,7 @@ def out_of_box_sim():
 def record(js, steps: int) -> tuple[list, list]:
     """Run the JAX driver chunk by chunk; returns each chunk's start run
     state and end state."""
-    from test_torch_init import jax_numpy
+    from test_torch_init import jax_numpy, port_run_state
 
     chunk = js._pick_chunk()
     starts, ends = [], []
@@ -128,7 +128,7 @@ def record(js, steps: int) -> tuple[list, list]:
             "rng": lc.rng.bit_generator.state,
             "lifecycle": {f: getattr(lc, f, 0) for f in
                           ("amax", "exported_mass", "last_birth_nv")},
-            "demand_win": list(getattr(js, "_demand_win", []))})
+            "run": port_run_state(js)})
         js.run(n)
         ends.append({"step": js.step_idx, "state": jax_numpy(js.state),
                      "cfg": dataclasses.asdict(js.cfg),

@@ -152,9 +152,10 @@ def _digest(sim, mesh) -> bool:
 def _run_sim(sc: dict, mesh) -> dict:
     """A mesh Simulation run chunk by chunk, each chunk from the JAX
     driver's chunk-start run state (``sc["starts"]``: step, state, config,
-    dissolved grid, lifecycle RNG and ledgers, pool-demand window).  The
-    config is replaced (and the step rebuilt and the slabs rebalanced) only
-    where JAX's changed, as JAX rebuilt there too.  Returns every chunk's
+    dissolved grid, lifecycle RNG and ledgers, and the driver's run state
+    under the port's names, ``run``).  The config is replaced (and the
+    step rebuilt and the slabs rebalanced) only where JAX's changed, as
+    JAX rebuilt there too.  Returns every chunk's
     end state and whether all ranks held the same global state."""
     from subzero_tpu_torch.convert import state_from_numpy, state_to_numpy
 
@@ -174,7 +175,8 @@ def _run_sim(sc: dict, mesh) -> dict:
         lc.rng.bit_generator.state = start["rng"]
         for f in ("amax", "exported_mass", "last_birth_nv"):
             setattr(lc, f, start["lifecycle"][f])
-        sim._demand_win = [tuple(w) for w in start["demand_win"]]
+        for k, v in start["run"].items():
+            setattr(sim, k, v)
         sim.run(start["n"])
         out.append({"step": sim.step_idx,
                     "state": state_to_numpy(sim.state),
