@@ -7,10 +7,11 @@ GPU: the quickest proof that the port builds and runs its main path there.
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
 
-1. Build the three CUDA kernels at once, one nvcc each:
+1. Build the four CUDA kernels at once, one nvcc each:
    ``subzero_tpu_torch/csrc/clip.cu`` (the XLA twin's clip, the default
    "integral" route), ``csrc/clip_pallas.cu`` (the Pallas kernel's,
-   phase 2b) and ``csrc/broadphase.cu`` (the dense broad phase, phase 2c);
+   phase 2b), ``csrc/broadphase.cu`` (the dense broad phase, phase 2c) and
+   ``csrc/mc_mask.cu`` (the births' Monte-Carlo mask, phase 2d);
    print ptxas's registers, spills and static shared memory for every
    template instance, and check clip.cu's shared-memory mirror.
 2. Hold clip.cu's kernel against its plain PyTorch version on the card, on seeded
@@ -57,6 +58,16 @@ prints no result):
    one launch a call.  Each timed alone on the card
    beside the plain version, with its bound (8 operations a pair test, 16
    on the torus, at 34 or 67 TFLOP/s) and share.
+2d. The births' Monte-Carlo mask kernel (``csrc/mc_mask.cu``) against the
+   host's numpy mask (``state.mc_inside``) on the card, bit for bit, from
+   ``make_floe_arrays``' own points at winter-10k's shapes (400 points,
+   rung 64): the cell's ~10,000-floe Voronoi field, its first 4,000 floes
+   and 4,000 stars of 20-64 vertices; each timed alone beside the host's
+   mask, with its bound (~10 float64 operations an edge test at 34 TFLOP/s,
+   or its bytes) and share, and both whole ``make_floe_arrays`` routes
+   timed.  Then ``winter_sim()`` on the card for 30 steps: the kernel
+   launches once for every ``apply_edits`` call with births or reshapes,
+   and at least once.
 3. CPU against CUDA in float64, from the same numpy inputs, through
    ``make_step_fn(device="cpu")`` (plain clip) and ``device="cuda"``
    (kernel): a walled 256-quad lattice in aggregate mode for 20 steps; a
@@ -113,7 +124,7 @@ prints no result):
    take ~4.4 s a step at this size) through ``Simulation.run`` with the
    launch counts (the step's and the lifecycle's tables) zeroed just
    before and read just after (the broad phase's kernel at least once a
-   step).  It prints
+   step, the births' mask kernel at least once).  It prints
    floe-steps/s of the driver and of the bare ``make_step_fn`` step on the
    same state, ``phase_report()`` with the lifecycle's per-pass seconds,
    the live floe count before and after, peak memory and clip launches
@@ -189,7 +200,8 @@ and power limit; before it, one JSON object with the kernels' records
 (broadphase.cu's timed at phase 2c's first field, its ``max_abs_err``
 the largest difference of idx and shift over phase 2c's fields, its
 ``launches`` summed over the seven phase-4 runs, one a step on the dense
-route, and the phase-6 run;
+route, and the phase-6 run; mc_mask.cu's timed at phase 2d's first set, its
+``launches`` phase 2d's and phase 6's;
 clip_pallas.cu's timed at the main path's overlap pairs, its ``launches``
 from phase 2b (b)'s two runs; clip.cu's ``launches`` summed over the
 seven phase-4 runs, the phase-6 run (the
@@ -505,17 +517,18 @@ def ptxas_instances(log):
 
 
 def phase_build():
-    """The three kernel sources built at once, one nvcc each."""
+    """The four kernel sources built at once, one nvcc each."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
     from subzero_tpu_torch.kernels import broadphase as kbp
     from subzero_tpu_torch.kernels import clip as kclip
     from subzero_tpu_torch.kernels import clip_pallas as kpallas
+    from subzero_tpu_torch.kernels import mc_mask as kmc
 
     t0 = time.perf_counter()
     mods = (("clip.cu", kclip), ("clip_pallas.cu", kpallas),
-            ("broadphase.cu", kbp))
+            ("broadphase.cu", kbp), ("mc_mask.cu", kmc))
     with ThreadPoolExecutor(len(mods)) as pool:
         libs = list(pool.map(lambda m: m[1].build(), mods))
     lib = libs[0]
@@ -842,6 +855,133 @@ def phase_broadphase(record):
                           bound_by=by)
         del got, want
     torch.cuda.empty_cache()
+
+
+# Phase 2d's shapes: the births of a winter-10k segment (~4,000 floes a
+# boundary at rung 64, 400 points) and the cell's 10,000-floe build
+MC_P = 400
+MC_V = 64
+MC_BIRTHS = 4000
+MC_SEED = 2026101818
+
+
+def mc_mask_inputs(seed=MC_SEED):
+    """Phase 2d's floe sets, ``[(label, polygons)]``: winter-10k's start
+    field (``BP_FIELDS``' recipe through ``init.voronoi_floe_field``, ~10,000
+    Voronoi cells of 5-10 vertices), its first ``MC_BIRTHS`` floes, and
+    ``MC_BIRTHS`` star-shaped floes of 20-64 vertices (the welded and
+    fractured floes that grow the rung to 64)."""
+    from subzero_tpu_torch.config import (
+        CapacityConfig, DomainConfig, SimConfig,
+    )
+    from subzero_tpu_torch.init import voronoi_floe_field
+
+    cfg = SimConfig(domain=DomainConfig(lx=1e6, ly=1e6),
+                    capacity=CapacityConfig(max_floes=20000, max_verts=MC_V,
+                                            n_mc_points=MC_P))
+    polys, _ = voronoi_floe_field(cfg, np.ones((25, 25)), 10000,
+                                  min_floe_size=4e6, seed=seed)
+    rng = np.random.default_rng(seed)
+    stars = []
+    for nv in rng.integers(20, MC_V + 1, MC_BIRTHS):
+        ang = (np.arange(nv) + rng.uniform(0.1, 0.9, nv)) * (2 * np.pi / nv)
+        rad = 1e4 * rng.uniform(0.4, 1.0, nv)
+        stars.append(np.stack([rad * np.cos(ang), rad * np.sin(ang)], 1)
+                     + rng.uniform(-1e6, 1e6, 2))
+    return cfg, [(f"winter-10k field, {len(polys)} floes", polys),
+                 (f"winter-10k field, first {MC_BIRTHS}", polys[:MC_BIRTHS]),
+                 (f"{MC_BIRTHS} stars of 20-{MC_V} vertices", stars)]
+
+
+def mc_mask_bound_ms(nv, b, v, p):
+    """(least ms, "operations" or "bytes") of the mask: ~10 float64
+    operations an edge test over each floe's real edges, or the points,
+    vertices and counts read once and the mask written once."""
+    ops = 10.0 * p * float(np.sum(nv))
+    nbytes = b * p * (16 + 1) + b * v * 16 + b * 4
+    t_ops, t_bytes = ops / F64_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_mc_mask(record):
+    """Phase 2d: the births' Monte-Carlo mask kernel (``csrc/mc_mask.cu``)
+    against the host's numpy mask (``state.mc_inside``) at winter-10k's
+    shapes, bit for bit, from ``make_floe_arrays``' own points; each timed
+    alone on the card beside the host's mask and both whole
+    ``make_floe_arrays`` routes; then a winter run's births must launch it
+    once for every ``apply_edits`` call that births or reshapes."""
+    import torch
+
+    from subzero_tpu_torch import trace
+    from subzero_tpu_torch.kernels.mc_mask import mc_mask_cuda
+    from subzero_tpu_torch.state import make_floe_arrays, mc_inside
+    from subzero_tpu_torch.validation import winter_sim
+
+    t0 = time.perf_counter()
+    cfg, cases = mc_mask_inputs()
+    log(f"[mc_mask] built the floe sets in {time.perf_counter() - t0:.1f} s")
+    for label, polys in cases:
+        b, heights = len(polys), np.ones(len(polys))
+        t0 = time.perf_counter()
+        host = make_floe_arrays(polys, heights, cfg, seed=MC_SEED, v_cap=MC_V)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with trace.recording(trace.Table()) as table:
+            card = make_floe_arrays(polys, heights, cfg, seed=MC_SEED,
+                                    v_cap=MC_V, device="cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        if table.counts != {"mc_mask.launches": 1, "mc_mask.floes": b}:
+            raise AssertionError(f"mc_mask {label}: counts {table.counts}")
+        record["launches"] += 1
+        if not np.array_equal(card["mc_xy"].cpu().numpy(), host["mc_xy"]):
+            raise AssertionError(f"mc_mask {label}: points differ")
+        miss = int((card["mc_in"].cpu() != torch.from_numpy(
+            host["mc_in"])).sum())
+        if miss:
+            raise AssertionError(f"mc_mask {label}: {miss} mask bits differ "
+                                 f"from the host's")
+        verts = torch.from_numpy(host["verts_body"]).cuda()
+        nv = torch.from_numpy(host["nv"]).cuda()
+        pts = card["mc_xy"]
+        ms, host_us = card_ms(lambda: mc_mask_cuda(verts, nv, pts))
+        t0 = time.perf_counter()
+        mc_inside(host["verts_body"], host["mc_xy"])
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        bound, by = mc_mask_bound_ms(host["nv"], b, MC_V, MC_P)
+        log(f"[mc_mask] {label}: B={b}, V={MC_V}, P={MC_P}, "
+            f"{int(host['nv'].sum())} real edges, "
+            f"{int(host['mc_in'].sum())} points inside: mask equal; kernel "
+            f"alone {ms:.4f} ms ({host_us:.1f} us host a call), bound "
+            f"{bound:.4f} ms ({by}), share {bound / ms:.1%}; host numpy mask "
+            f"{numpy_ms:.1f} ms ({numpy_ms / ms:.0f}x); make_floe_arrays "
+            f"host route {host_s:.3f} s, card route {card_s:.3f} s "
+            f"(upload and kernel included)")
+        if "ms" not in record:
+            record.update(ms=ms, plain_ms=numpy_ms, bound_ms=bound,
+                          bound_by=by)
+    # the route: a winter run's births and reshapes go through the kernel,
+    # one launch an apply_edits call that has any
+    sim = winter_sim(device="cuda")
+    t0 = time.perf_counter()
+    sim.run(MC_WINTER_STEPS)
+    torch.cuda.synchronize()
+    pt = sim.lifecycle.pass_times
+    launches = pt.counts.get("mc_mask.launches", 0)
+    calls = pt.entries.get("apply_edits/floe_arrays", 0)
+    log(f"[mc_mask] winter_sim, {MC_WINTER_STEPS} steps in "
+        f"{time.perf_counter() - t0:.1f} s: {launches} kernel launches for "
+        f"{pt.counts.get('mc_mask.floes', 0)} floes, {calls} apply_edits "
+        f"calls with births or reshapes")
+    if not launches or launches != calls:
+        raise AssertionError(f"phase 2d: {launches} mask launches for "
+                             f"{calls} apply_edits calls with births")
+    record["launches"] += launches
+    torch.cuda.empty_cache()
+
+
+MC_WINTER_STEPS = 30      # phase 2d: births at the boundaries 10, 20, 25, 30
 
 
 # ---------------------------------------------------------------------------
@@ -1787,7 +1927,7 @@ def big_winter(seed=0):
     return sim, len(polys)
 
 
-def phase_big_run(kernel_record, bp_record):
+def phase_big_run(kernel_record, bp_record, mc_record):
     """Phase 6: the scaled winter pack through ``Simulation.run`` in
     float32 on CUDA — the port's main path at full size."""
     import torch
@@ -1851,6 +1991,7 @@ def phase_big_run(kernel_record, bp_record):
         wall = time.perf_counter() - t0
         launches = sim_launches(sim)
         bp_steps = bp_launches(sim.phase_times)
+        mc_calls = sim.lifecycle.pass_times.counts.get("mc_mask.launches", 0)
     finally:
         Simulation._grow_pools = orig
         tlc.apply_edits, tlc.Lifecycle.step = orig_apply, orig_step
@@ -1864,11 +2005,16 @@ def phase_big_run(kernel_record, bp_record):
         f"{sim.state.n} slots ({live_rate:.1f} over the {alive0} live "
         f"floes); live floes {alive0} -> {alive1}; peak memory {peak:.2f} "
         f"GiB; clip launches {launches}; broad-phase kernel launches "
-        f"{bp_steps}; chunk {sim._chunk} steps")
+        f"{bp_steps}; Monte-Carlo mask kernel launches {mc_calls}; chunk "
+        f"{sim._chunk} steps")
     if bp_steps < BIG_STEPS:
         raise AssertionError(f"phase 6: {bp_steps} broad-phase kernel "
                              f"launches in {BIG_STEPS} steps")
+    if not mc_calls:
+        raise AssertionError("phase 6: the births never launched the "
+                             "Monte-Carlo mask kernel")
     bp_record["launches"] += bp_steps
+    mc_record["launches"] += mc_calls
     for line in sim.phase_report().splitlines():
         log(f"[big] {line}")
     lc = sim.lifecycle
@@ -2725,6 +2871,13 @@ def main() -> int:
         "launches": 0, "max_abs_err": 0.0, "library_ms": None,
     }
     phase_broadphase(bp_record)
+    mc_record = {
+        "name": "mc_mask", "route": "cuda",
+        "source": "subzero_tpu_torch/csrc/mc_mask.cu",
+        "replaces": "none: numpy in subzero_tpu/state.py:make_floe_arrays",
+        "launches": 0, "max_abs_err": 0.0, "library_ms": None,
+    }
+    phase_mc_mask(mc_record)
     built = main_path_runs()
     pallas_record = {
         "name": "clip_pallas", "route": "cuda",
@@ -2743,7 +2896,7 @@ def main() -> int:
     runs, results = phase_main_path(record, built, bp_record)
     record["max_abs_err"] = max(record["max_abs_err"], worst)
     phase_sim_parity()
-    phase_big_run(record, bp_record)
+    phase_big_run(record, bp_record, mc_record)
     phase_remainder(runs, results, record)
     phase_spatial(results, record)
     phase_campaign(record)
@@ -2754,7 +2907,7 @@ def main() -> int:
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in (record, pallas_record,
-                                            bp_record)]}))
+                                            bp_record, mc_record)]}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -22,6 +22,7 @@ import torch
 
 from ..config import SimConfig
 from ..state import FloeState, make_floe_arrays
+from ..trace import span
 
 SCALARS = (
     "x", "y", "alpha", "u", "v", "ksi", "h", "mass", "inertia", "area",
@@ -451,7 +452,6 @@ def apply_edits(state: FloeState, edit: StateEdit, cfg: SimConfig,
 
     # -- births (reshapes are births into the same slot) -------------------
     births: list[tuple[int, NewFloe]] = []
-    reshape_slots = []
     if edit.reshapes:
         kin_names = ("u", "v", "ksi", "dx_p", "dy_p", "du_p", "dv_p",
                      "dksi_p")
@@ -466,7 +466,6 @@ def apply_edits(state: FloeState, edit: StateEdit, cfg: SimConfig,
             **{k: float(kin[slot, i]) for i, k in enumerate(kin_names)},
         )
         births.append((slot, nf))
-        reshape_slots.append(slot)
 
     if edit.new_floes:
         free = _free_slots(alive, edit.kills | edit.dissolve_kills,
@@ -478,73 +477,16 @@ def apply_edits(state: FloeState, edit: StateEdit, cfg: SimConfig,
         return state
 
     if births:
-        slots = [s for s, _ in births]
-        floes = [f for _, f in births]
-        heights = np.array([
-            f.h if f.mass is None else 1.0 for f in floes
-        ])
-        # Polygon surgery (unions/differences) can exceed the vertex
-        # capacity; reduce to the cap conserving area (the reference relies
-        # on unlimited polyshape vertices + periodic FloeSimplify instead).
-        # The truncation bound is max_verts (the fidelity cap); the arrays
-        # are built at the state's current vertex rung, which the driver's
-        # grow_verts_fn has already raised to cover these births (a library
-        # caller without the hook gets capped at the rung instead).
-        vc = min(cfg.capacity.max_verts, state.v_cap)
-        polys = [_cap_vertices(f.poly, vc) for f in floes]
-        arrs = make_floe_arrays(polys, heights, cfg, seed=seed,
-                                v_cap=state.v_cap)
-        if any(f.mass is not None for f in floes):
-            for k, f in enumerate(floes):
-                if f.mass is not None:
-                    area_k = arrs["area"][k]
-                    h_k = f.mass / (cfg.physics.rho_ice * area_k)
-                    arrs["h"][k] = h_k
-                    arrs["mass"][k] = f.mass
-                    arrs["inertia"][k] = arrs["inertia"][k] * h_k  # was h=1
-        # kinematics + AB2 history
-        for name in ("u", "v", "ksi", "dx_p", "dy_p", "du_p", "dv_p",
-                     "dksi_p"):
-            arrs[name] = np.array([getattr(f, name) for f in floes])
-        n_new = len(floes)
-        arrs["alpha"] = np.zeros(n_new)
-        arrs["dalpha_p"] = np.zeros(n_new)
-        arrs["fx_oa"] = np.zeros(n_new)
-        arrs["fy_oa"] = np.zeros(n_new)
-        arrs["tq_oa"] = np.zeros(n_new)
-        arrs["overlap_area"] = np.zeros(n_new)
-        arrs["strain"] = np.stack([
-            f.strain if f.strain is not None else np.zeros(3) for f in floes
-        ])
-        del arrs["alive"]
-
-        for s in slots:
-            alive[s] = True
-
-        # ---- ONE packed write of every birth field ----------------------
-        # (plus the stress ring-history blend): the rows travel to the
-        # device as one [B, F] tensor in the state dtype.
-        sizes = _birth_layout(state)
-        vals = np.zeros((n_new, sum(sz for _, sz in sizes)))
-        off = 0
-        for name, sz in sizes:
-            vals[:, off:off + sz] = \
-                np.asarray(arrs[name]).reshape(n_new, sz)
-            off += sz
-        max_p = max((len(f.stress_blend) for _, f in births), default=0)
-        pidx = np.zeros((n_new, max(max_p, 1)), np.int64)
-        pw = np.zeros((n_new, max(max_p, 1)))
-        for bi, (_, f) in enumerate(births):
-            for pj, (p, w) in enumerate(f.stress_blend):
-                pidx[bi, pj] = p
-                pw[bi, pj] = w
-        if upd:
-            state = state.replace(**upd)  # updates first, births override
-        if upd_rows is not None:
-            state = _write_updates(state, *upd_rows, state.alive)
-        return _write_births(
-            state, on_dev(slots, torch.long), on_dev(vals, dt),
-            on_dev(pidx), on_dev(pw, dt), on_dev(alive))
+        with span("floe_arrays"):
+            arrs = _birth_arrays([f for _, f in births], state, cfg, seed)
+        with span("write"):
+            for s, _ in births:
+                alive[s] = True
+            if upd:
+                state = state.replace(**upd)  # updates first, births override
+            if upd_rows is not None:
+                state = _write_updates(state, *upd_rows, state.alive)
+            return _write_births(state, births, arrs, on_dev(alive))
 
     # inertia update when h changed without reshape (ridge winner):
     # reference scales inertia by h_new/h_old (ridge_values_update.m:18),
@@ -556,12 +498,44 @@ def apply_edits(state: FloeState, edit: StateEdit, cfg: SimConfig,
     return state.replace(**upd)
 
 
+def _birth_arrays(floes: list[NewFloe], state: FloeState, cfg: SimConfig,
+                  seed: int) -> dict:
+    """``make_floe_arrays`` of the born floes, on the state's device (its
+    Monte-Carlo points and mask are device tensors on a CUDA state), with a
+    reshape's mass kept."""
+    heights = np.array([f.h if f.mass is None else 1.0 for f in floes])
+    # Polygon surgery (unions/differences) can exceed the vertex
+    # capacity; reduce to the cap conserving area (the reference relies
+    # on unlimited polyshape vertices + periodic FloeSimplify instead).
+    # The truncation bound is max_verts (the fidelity cap); the arrays
+    # are built at the state's current vertex rung, which the driver's
+    # grow_verts_fn has already raised to cover these births (a library
+    # caller without the hook gets capped at the rung instead).
+    vc = min(cfg.capacity.max_verts, state.v_cap)
+    polys = [_cap_vertices(f.poly, vc) for f in floes]
+    arrs = make_floe_arrays(polys, heights, cfg, seed=seed,
+                            v_cap=state.v_cap, device=state.x.device)
+    for k, f in enumerate(floes):
+        if f.mass is not None:
+            h_k = f.mass / (cfg.physics.rho_ice * arrs["area"][k])
+            arrs["h"][k] = h_k
+            arrs["mass"][k] = f.mass
+            arrs["inertia"][k] = arrs["inertia"][k] * h_k  # was h=1
+    return arrs
+
+
+# Birth fields written row for row, not in the packed block: the
+# Monte-Carlo points and mask, which a CUDA state computes on the device.
+_MC_FIELDS = ("mc_xy", "mc_in")
+
+
 def _birth_layout(state: FloeState) -> list[tuple[str, int]]:
-    """(field, flattened size) for every state field a birth sets — all of
-    them except the stress ring machinery and the alive mask."""
+    """(field, flattened size) for every state field of a birth's packed
+    block — all of them except the stress ring machinery, the alive mask
+    and the Monte-Carlo fields."""
     out = []
     for f in dataclasses.fields(state):
-        if f.name in ("stress_hist", "stress", "alive"):
+        if f.name in ("stress_hist", "stress", "alive") + _MC_FIELDS:
             continue
         cur = getattr(state, f.name)
         out.append((f.name,
@@ -569,19 +543,56 @@ def _birth_layout(state: FloeState) -> list[tuple[str, int]]:
     return out
 
 
-def _write_births(state: FloeState, slots, vals, pidx, pw, alive_new):
-    """Write complete birth rows (packed [B, F]) + the stress-history blend
-    into new tensors; the mean stress is recomputed for every floe."""
+def _write_births(state: FloeState, births: list[tuple[int, NewFloe]],
+                  arrs: dict, alive_new: torch.Tensor) -> FloeState:
+    """Write complete birth rows + the stress-history blend into new
+    tensors; the mean stress is recomputed for every floe.  ``arrs``
+    (``_birth_arrays``) gains the kinematics; every field but the
+    Monte-Carlo ones travels to the device as ONE packed [B, F] tensor in
+    the state dtype, and those go row for row from where they were made."""
+    dev, dt = state.x.device, state.x.dtype
+    floes = [f for _, f in births]
+    n_new = len(floes)
+    # kinematics + AB2 history
+    for name in ("u", "v", "ksi", "dx_p", "dy_p", "du_p", "dv_p", "dksi_p"):
+        arrs[name] = np.array([getattr(f, name) for f in floes])
+    for name in ("alpha", "dalpha_p", "fx_oa", "fy_oa", "tq_oa",
+                 "overlap_area"):
+        arrs[name] = np.zeros(n_new)
+    arrs["strain"] = np.stack([
+        f.strain if f.strain is not None else np.zeros(3) for f in floes
+    ])
+    sizes = _birth_layout(state)
+    vals = np.zeros((n_new, sum(sz for _, sz in sizes)))
+    off = 0
+    for name, sz in sizes:
+        vals[:, off:off + sz] = np.asarray(arrs[name]).reshape(n_new, sz)
+        off += sz
+    max_p = max(len(f.stress_blend) for f in floes)
+    pidx = np.zeros((n_new, max(max_p, 1)), np.int64)
+    pw = np.zeros((n_new, max(max_p, 1)))
+    for bi, f in enumerate(floes):
+        for pj, (p, w) in enumerate(f.stress_blend):
+            pidx[bi, pj] = p
+            pw[bi, pj] = w
+
+    slots = torch.as_tensor([s for s, _ in births], dtype=torch.long,
+                            device=dev)
+    vals = torch.as_tensor(vals, dtype=dt, device=dev)
     upd = {}
     off = 0
-    for name, sz in _birth_layout(state):
+    for name, sz in sizes:
         cur = getattr(state, name)
-        chunk = vals[:, off:off + sz].reshape(
-            (vals.shape[0],) + tuple(cur.shape[1:]))
+        chunk = vals[:, off:off + sz].reshape((n_new,) + tuple(cur.shape[1:]))
         upd[name] = _set_rows(cur, slots, chunk)
         off += sz
+    for name in _MC_FIELDS:
+        upd[name] = _set_rows(getattr(state, name), slots,
+                              torch.as_tensor(arrs[name], device=dev))
     hist = state.stress_hist
-    rows = torch.einsum("bp,bpwc->bwc", pw.to(hist.dtype), hist[pidx])
+    rows = torch.einsum("bp,bpwc->bwc",
+                        torch.as_tensor(pw, dtype=hist.dtype, device=dev),
+                        hist[torch.as_tensor(pidx, device=dev)])
     hist = _set_rows(hist, slots, rows)
     upd["stress_hist"] = hist
     upd["stress"] = torch.mean(hist, dim=1)

@@ -17,11 +17,13 @@ import torch
 from .config import SimConfig
 from .device import resolve_device
 from .geometry.polygon import pad_polygon
+from .kernels.mc_mask import mc_mask_cuda
 
 __all__ = [
     "FloeState",
     "empty_state",
     "make_floe_arrays",
+    "mc_inside",
     "state_from_polygons",
     "torch_dtype",
 ]
@@ -170,15 +172,20 @@ def make_floe_arrays(
     cfg: SimConfig,
     seed: int = 0,
     v_cap: int | None = None,
+    device=None,
 ):
     """Host-side floe construction from world-frame polygons.
 
     Numpy equivalent of ``initialize_floe_values.m``: centroid, body-frame
-    contour, area, inertia, rmax, Monte-Carlo sample mask.  A verbatim copy
-    of the JAX package's function, so the same seed gives the same
-    Monte-Carlo points in both packages.
+    contour, area, inertia, rmax, Monte-Carlo sample mask.  A copy of the
+    JAX package's function, so the same seed gives the same Monte-Carlo
+    points in both packages, and the same mask.
 
-    Returns a dict of numpy arrays for the first ``len(polys)`` slots.
+    Returns a dict of numpy arrays for the first ``len(polys)`` slots.  For
+    a CUDA ``device`` the mask is computed there, by the kernel of
+    ``kernels/mc_mask.py`` from the points uploaded once in float64, and
+    ``mc_xy`` (float64) and ``mc_in`` are tensors on that device; for any
+    other device, or none, the host computes it (``mc_inside``).
     """
     n = len(polys)
     v = v_cap or cfg.capacity.verts_now
@@ -215,8 +222,31 @@ def make_floe_arrays(
     mass = area * heights * cfg.physics.rho_ice
 
     # Monte-Carlo masks: uniform in the rmax bounding square (body frame),
-    # crossing-number PIP, fully vectorized [n, p] x [n, v].
+    # crossing-number PIP.
     mc_xy = rmax[:, None, None] * (2.0 * rng.random((n, p, 2)) - 1.0)
+    if device is not None and torch.device(device).type == "cuda":
+        mc_xy = torch.from_numpy(mc_xy).to(device)
+        mc_in = mc_mask_cuda(torch.from_numpy(verts).to(device),
+                             torch.from_numpy(nv).to(device), mc_xy)
+    else:
+        mc_in = mc_inside(verts, mc_xy)
+
+    return dict(
+        verts_body=verts, nv=nv, x=cx, y=cy,
+        h=heights, mass=mass, inertia=inertia, area=area, rmax=rmax,
+        mc_xy=mc_xy, mc_in=mc_in,
+        alive=np.ones((n,), bool),
+    )
+
+
+def mc_inside(verts: np.ndarray, mc_xy: np.ndarray) -> np.ndarray:
+    """Which points ``mc_xy`` ``[n, p, 2]`` lie inside the body-frame
+    polygons ``verts`` ``[n, v, 2]`` (padded with vertex 0): the JAX
+    package's crossing-number test, fully vectorized [n, p] x [n, v] in
+    float64 on the host.  The plain version of ``kernels/mc_mask.py``."""
+    x0, y0 = verts[..., 0], verts[..., 1]
+    x1 = np.roll(x0, -1, axis=1)
+    y1 = np.roll(y0, -1, axis=1)
     px = mc_xy[..., 0][:, :, None]
     py = mc_xy[..., 1][:, :, None]
     ex0, ey0 = x0[:, None, :], y0[:, None, :]
@@ -226,14 +256,7 @@ def make_floe_arrays(
         t = np.where(ey1 == ey0, 0.0, (py - ey0) / np.where(
             ey1 == ey0, 1.0, ey1 - ey0))
     xint = ex0 + t * (ex1 - ex0)
-    mc_in = (np.sum(cond & (px < xint), axis=2) % 2) == 1
-
-    return dict(
-        verts_body=verts, nv=nv, x=cx, y=cy,
-        h=heights, mass=mass, inertia=inertia, area=area, rmax=rmax,
-        mc_xy=mc_xy, mc_in=mc_in,
-        alive=np.ones((n,), bool),
-    )
+    return (np.sum(cond & (px < xint), axis=2) % 2) == 1
 
 
 def state_from_polygons(
@@ -253,14 +276,20 @@ def state_from_polygons(
     n_cap = cfg.capacity.max_floes
     if len(polys) > n_cap:
         raise ValueError(f"{len(polys)} floes > capacity {n_cap}")
-    arrs = make_floe_arrays(polys, heights, cfg, seed)
+    arrs = make_floe_arrays(polys, heights, cfg, seed, device=dev)
     proto = empty_state(cfg, dtype=dt, device="cpu")
-    # Assemble host-side, one transfer per field at the end.
+    # Assemble host-side, one transfer per field at the end; a field the
+    # device computed (the Monte-Carlo points and mask) is assembled there.
     fields = {f.name: getattr(proto, f.name)
               for f in dataclasses.fields(FloeState)}
     for k, val in arrs.items():
-        buf = fields[k].clone()
-        buf[: len(polys)] = torch.from_numpy(np.asarray(val)).to(buf.dtype)
+        if torch.is_tensor(val):
+            buf = torch.zeros_like(fields[k], device=val.device)
+            buf[: len(polys)] = val.to(buf.dtype)
+        else:
+            buf = fields[k].clone()
+            buf[: len(polys)] = torch.from_numpy(np.asarray(val)).to(
+                buf.dtype)
         fields[k] = buf
     if velocities is not None:
         vel = np.zeros((n_cap, 2))

@@ -20,6 +20,7 @@ import torch
 from subzero_tpu_torch import trace
 from subzero_tpu_torch.dynamics import contact
 from subzero_tpu_torch.processes import lifecycle as tlc
+from subzero_tpu_torch.processes.host import NewFloe
 from subzero_tpu_torch.sim import out_of_box_sim
 
 torch.set_num_threads(1)
@@ -191,6 +192,37 @@ def test_profile_trace_holds_the_spans(tmp_path):
 
 
 @pytest.mark.cuda
+def test_apply_edits_spans_split_the_write_back(monkeypatch):
+    """A boundary that births a floe and reshapes another records the
+    write-back's two child spans, ``apply_edits/floe_arrays`` and
+    ``apply_edits/write``, once each, within ``apply_edits``; on the CPU
+    the mask is the host's, so no kernel launch is counted."""
+    sim = small_sim()
+    lc = sim.lifecycle
+    live = [int(i) for i in torch.nonzero(sim.state.alive)[:, 0]]
+
+    def merges(self, view, pairs, edit):
+        a, b = pairs[0]
+        edit.reshapes[a] = (0.9 * (view.poly(a) - [view.x[a], view.y[a]])
+                            + [view.x[a], view.y[a]], 0.81 * view.mass[a])
+        edit.kills.add(b)
+        edit.new_floes.append(NewFloe(poly=view.poly(b), h=view.h[b],
+                                      stress_blend=[(b, 1.0)]))
+
+    monkeypatch.setattr(tlc.Lifecycle, "_merges_from_pairs", merges)
+    state, _, changed = lc.step(sim.state, None, 1, sim.dissolved,
+                                merge_pairs=[(live[1], live[2])])
+    assert changed
+    pt = lc.pass_times
+    kids = ("apply_edits/floe_arrays", "apply_edits/write")
+    for k in kids:
+        assert pt.entries[k] == 1
+    assert 0 < sum(pt[k] for k in kids) <= pt["apply_edits"]
+    assert "mc_mask.launches" not in pt.counts
+    assert int(state.alive.sum()) == len(live)
+    assert not torch.equal(state.mc_in[live[1]], sim.state.mc_in[live[1]])
+
+
 def test_span_ranges_stay_off_the_device_timeline_on_card():
     """A span's range lies on the host's lanes only; ``record_function``'s
     user annotation, which the spans do not use, is mirrored onto the
